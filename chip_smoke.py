@@ -1,0 +1,368 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port (``radiocore_tpu_torch``) on one
+NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It
+
+1. builds the hand-written kernels from ``radiocore_tpu_torch/csrc`` with
+   ``nvcc`` for ``sm_90a``;
+2. runs K-FFT, K-EXTRACT and K-FIR at the main path's shapes against
+   their plain PyTorch versions on the card, and times both;
+3. drives the main path — ``make_multi_station_step(mode="fast")`` for
+   64 stations × 262 144 S/s (a 2^24-sample band, 49 152 audio samples
+   per station per chunk), the plan of ``bench.py`` — over 5 chained
+   chunks of FM stations synthesized on the card from a seeded
+   generator, checks that every kernel launched, and compares chunk 1
+   with the same port run on the CPU;
+4. decodes one real FM stereo station (440 Hz left, 1 kHz right) placed
+   in a 2^24 band and checks both tones' SNR.
+
+Every phase raises on failure. Without a CUDA device, or outside a
+checkout of the repository, it exits non-zero and prints no result. The
+last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+SEED = 1234
+
+# The main plan (bench.py): 64 stations of 262 144 S/s, band 2^24.
+N_STATIONS = 64
+STATION = 262_144
+AUDIO = 49_152
+N_BAND = N_STATIONS * STATION
+CHUNKS = 5
+
+REL_L2_MAX = 1e-5     # K-FFT and K-EXTRACT against complex128 references
+FIR_ABS_MAX = 1e-5    # K-FIR against float64
+E2E_ABS_MAX = 1e-4    # card against CPU, audio of chunk 1
+SNR_MIN_DB = 20.0     # per stereo tone, as the repository's verify drive
+
+KERNELS = {
+    "K-FFT": ("radiocore_tpu_torch/csrc/fft_rows.cu",
+              "radiocore_tpu/kernels/fft_pallas.py:258"),
+    "K-EXTRACT": ("radiocore_tpu_torch/csrc/extract.cu",
+                  "radiocore_tpu/kernels/extract_pallas.py:108"),
+    "K-FIR": ("radiocore_tpu_torch/csrc/fir.cu",
+              "radiocore_tpu/kernels/fir_pallas.py:150"),
+}
+
+
+def offsets(c: int, sc: int):
+    half = c * sc // 2 - sc // 2
+    return [int(-half + i * sc) for i in range(c)]
+
+
+def rel_l2(got, want) -> float:
+    import torch
+    d = got.to(want.dtype) - want
+    return float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(want))
+
+
+def max_abs(got, want) -> float:
+    return float((got.to(want.dtype) - want).abs().max())
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after warm-up."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def fm_band(gen, c: int, sc: int, device):
+    """Band chunk of ``c`` FM stereo stations (random tones per station,
+    the multiplex of ``tests/oracles.make_stereo_multiplex`` and the
+    modulation of ``make_fm_iq``) plus complex noise, built on ``device``
+    from the generator ``gen``."""
+    import torch
+    f64 = dict(dtype=torch.float64, device=device)
+    n = c * sc
+    t = torch.arange(sc, **f64) / sc
+    tones = 200.0 + 1800.0 * torch.rand(c, 2, generator=gen, **f64)
+    left = 0.3 * torch.sin(2 * math.pi * tones[:, :1] * t)
+    right = 0.3 * torch.sin(2 * math.pi * tones[:, 1:] * t)
+    sub_gain = 1.0 / (0.54 + 0.46 * math.cos(2 * math.pi * 38e3 / sc))
+    mpx = ((left + right) / 2 + 0.1 * torch.sin(2 * math.pi * 19e3 * t)
+           - torch.sin(2 * math.pi * 38e3 * t) * (left - right) * sub_gain)
+    iq = torch.exp(1j * math.pi * 0.25 * torch.cumsum(mpx, dim=-1))
+    k = torch.fft.fftfreq(sc, 1.0 / sc, device=device).long()
+    bins = (torch.tensor(offsets(c, sc), device=device)[:, None] + k) % n
+    spec = torch.zeros(n, dtype=torch.complex128, device=device)
+    spec[bins.reshape(-1)] = (torch.fft.fft(iq, dim=-1) * (n / sc)).reshape(-1)
+    band = torch.fft.ifft(spec)
+    band += 0.01 * torch.complex(torch.randn(n, generator=gen, **f64),
+                                 torch.randn(n, generator=gen, **f64))
+    return band.to(torch.complex64)
+
+
+def station_band(station: int, c: int, sc: int, noise_gen, device):
+    """One FM stereo station (440 Hz left, 1 kHz right; numpy oracles)
+    at the bins of slot ``station`` of a ``c·sc`` band; the rest noise."""
+    import numpy as np
+    import torch
+    from oracles import make_fm_iq, make_stereo_multiplex
+    n = c * sc
+    iq = make_fm_iq(make_stereo_multiplex(sc, sc, 440.0, 1000.0), 0.25)
+    k = (np.fft.fftfreq(sc) * sc).astype(np.int64)
+    spec = np.zeros(n, np.complex128)
+    spec[(offsets(c, sc)[station] + k) % n] = np.fft.fft(iq) * (n / sc)
+    band = torch.from_numpy(np.fft.ifft(spec)).to(device)
+    f64 = dict(dtype=torch.float64, device=device)
+    band += 0.05 * torch.complex(torch.randn(n, generator=noise_gen, **f64),
+                                 torch.randn(n, generator=noise_gen, **f64))
+    return band.to(torch.complex64)
+
+
+def check_kernels(device, gen) -> dict:
+    """Phase 2: each kernel against its plain version at the main path's
+    shapes; returns per-kernel max_abs_err/ms/plain_ms. A NaN error fails
+    its bound check."""
+    import torch
+    from radiocore_tpu_torch.kernels import extract, fft_rows, fir
+    from radiocore_tpu_torch.ops.design import deemphasis_taps
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(shape, generator=gen, device=device),
+                             torch.randn(shape, generator=gen, device=device))
+
+    def report(what, err, bound, ms, plain_ms):
+        print(f"[kernel] {what}: {err:.3e} (bound {bound:.0e}) "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        if not err <= bound:
+            raise AssertionError(f"{what}: error {err} above {bound}")
+
+    out = {}
+    rows = crandn(N_STATIONS, STATION)
+    got = fft_rows.fft_pow2(rows)
+    err = rel_l2(got, torch.fft.fft(rows.to(torch.complex128)))
+    report("K-FFT rows 64x2^18 fwd rel_l2", err, REL_L2_MAX,
+           time_ms(lambda: fft_rows.fft_pow2(rows)),
+           time_ms(lambda: fft_rows.fft_pow2_plain(rows)))
+    del rows, got
+
+    band = crandn(N_BAND)
+    band64 = band.to(torch.complex128)
+    for sign, ref in ((-1.0, torch.fft.fft(band64)),
+                      (+1.0, torch.fft.ifft(band64, norm="forward"))):
+        got = fft_rows.fft_large_pow2(band, sign)
+        err = rel_l2(got, ref)
+        ms = time_ms(lambda: fft_rows.fft_large_pow2(band, sign))
+        plain = time_ms(lambda: fft_rows.fft_pow2_plain(band, sign))
+        name = "fwd" if sign < 0 else "bwd"
+        report(f"K-FFT band 2^24 {name} rel_l2", err, REL_L2_MAX, ms, plain)
+        if sign < 0:
+            out["K-FFT"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
+                                plain_ms=plain)
+        del got, ref
+    del band64
+
+    real = torch.randn(N_STATIONS, STATION, generator=gen, device=device)
+    got = fft_rows.rfft_pow2(real)
+    err = rel_l2(got, torch.fft.rfft(real.double()))
+    report("K-FFT rfft 64x2^18 real rel_l2", err, REL_L2_MAX,
+           time_ms(lambda: fft_rows.rfft_pow2(real)),
+           time_ms(lambda: fft_rows.rfft_pow2_plain(real)))
+    del real, got
+
+    c, m, n = N_STATIONS, STATION, N_BAND
+    s_norm = 1.0 / n
+    spec = band
+    spec64 = spec.to(torch.complex128)
+    for a0 in (n // 2, n // 2 + 12_345):
+        got = extract.extract_rows(spec, a0, c, m, s_norm)
+        ref = extract.extract_rows_plain(spec64, a0, c, m, s_norm)
+        err = rel_l2(got, ref)
+        ms = time_ms(lambda: extract.extract_rows(spec, a0, c, m, s_norm))
+        plain = time_ms(
+            lambda: extract.extract_rows_plain(spec, a0, c, m, s_norm))
+        report(f"K-EXTRACT 64x2^18 a0={a0} rel_l2", err, REL_L2_MAX, ms,
+               plain)
+        if a0 == n // 2:
+            out["K-EXTRACT"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
+                                    plain_ms=plain)
+        del got, ref
+    del spec, spec64, band
+
+    taps = deemphasis_taps(AUDIO)
+    x = torch.randn(2 * N_STATIONS, AUDIO, generator=gen, device=device)
+    hist = torch.randn(2 * N_STATIONS, len(taps) - 1, generator=gen,
+                       device=device)
+    got = fir.fir_causal_rows(x, taps, hist)
+    ref = fir.fir_causal_plain(x.double(), taps, hist.double())
+    err = max_abs(got, ref)
+    ms = time_ms(lambda: fir.fir_causal_rows(x, taps, hist))
+    plain = time_ms(lambda: fir.fir_causal_plain(x, taps, hist))
+    report("K-FIR 51 taps 128x49152 max_abs", err, FIR_ABS_MAX, ms, plain)
+    out["K-FIR"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    return out
+
+
+def run_main_path(device, gen, c=N_STATIONS, sc=STATION, ac=AUDIO,
+                  chunks=CHUNKS):
+    """Phase 3: the main path over ``chunks`` chained chunks; returns the
+    first chunk's band and audio and the kernels' launch counts."""
+    import torch
+    from radiocore_tpu_torch.kernels import extract, fft_rows, fir
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+
+    step, state = make_multi_station_step(c * sc, offsets(c, sc), sc, ac,
+                                          mode="fast", device=device)
+    bands = [fm_band(gen, c, sc, device) for _ in range(chunks)]
+    counters = {"K-FFT": fft_rows.launches, "K-EXTRACT": extract.launches,
+                "K-FIR": fir.launches}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: 0)
+    sync()
+    for counter in counters.values():
+        counter.reset()
+    audios = []
+    for band in bands:
+        audio, state = step(band, state)
+        audios.append(audio)
+    sync()
+    launches = {name: ctr.count for name, ctr in counters.items()}
+    for audio in audios:
+        if tuple(audio.shape) != (c, ac, 2):
+            raise AssertionError(f"audio shape {tuple(audio.shape)}")
+        if not bool(torch.isfinite(audio).all()):
+            raise AssertionError("non-finite audio")
+    return step, state, bands[0], audios[0], launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs only on a "
+              "GPU", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(REPO), str(REPO / "tests")]
+    import numpy as np
+    from oracles import tone_snr_db
+    from radiocore_tpu_torch.kernels import build
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    from radiocore_tpu_torch.runtime.platform import nvidia_smi_name_power
+
+    smi = nvidia_smi_name_power()
+    if not smi:
+        raise RuntimeError("nvidia-smi gave no card name and power limit")
+    print(smi.splitlines()[0])
+    nvcc = subprocess.run([build.find_nvcc(), "--version"],
+                          capture_output=True, text=True, check=True)
+    try:
+        import triton
+        triton_state = f"triton {triton.__version__} imports"
+    except ImportError:
+        triton_state = "triton does not import"
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}, nvcc "
+          f"{nvcc.stdout.strip().splitlines()[-1]}, {triton_state}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+          f"cudnn {torch.backends.cudnn.allow_tf32}")
+    device = torch.device("cuda", 0)
+    print(f"device: {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}")
+
+    # Phase 1: build.
+    t0 = time.perf_counter()
+    res = build.build()
+    build.library()
+    print(f"[build] nvcc sm_90a: {res.seconds:.1f} s compile, "
+          f"{time.perf_counter() - t0:.1f} s total -> "
+          f"{res.path.relative_to(REPO)}")
+    for line in res.log.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print(f"[build] {line.strip()}")
+
+    # Phase 2: kernels against their plain versions.
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    kstats = check_kernels(device, gen)
+
+    # Phase 3: the main path.
+    step, state, band1, audio1, launches = run_main_path(device, gen)
+    print(f"[main] {N_STATIONS} x {STATION} -> {AUDIO}, {CHUNKS} chunks: "
+          f"audio {tuple(audio1.shape)} finite; launches {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+    band = fm_band(gen, N_STATIONS, STATION, device)
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, state = step(band, state)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = min(s.elapsed_time(e) for s, e in times)
+    st = step.stages
+    spec = st["band_fft"](band)
+    stations = st["extract"](spec)
+    stage_ms = {
+        "band_fft": time_ms(lambda: st["band_fft"](band)),
+        "extract": time_ms(lambda: st["extract"](spec)),
+        "demod_tail": time_ms(lambda: st["demod_tail"](stations, state)),
+    }
+    print(f"[main] step {step_ms:.3f} ms (min of 10); stages (median of 20) "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()))
+    del spec, stations
+    step_cpu, state_cpu = make_multi_station_step(
+        N_BAND, offsets(N_STATIONS, STATION), STATION, AUDIO, mode="fast",
+        device="cpu")
+    audio_cpu, _ = step_cpu(band1.cpu(), state_cpu)
+    e2e = max_abs(audio1.cpu(), audio_cpu)
+    print(f"[main] chunk 1 card vs CPU max_abs {e2e:.3e} "
+          f"(bound {E2E_ABS_MAX:.0e})")
+    if not e2e <= E2E_ABS_MAX:
+        raise AssertionError(f"card and CPU audio differ by {e2e}")
+
+    # Phase 4: one real station.
+    slot = N_STATIONS // 3
+    noise_gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    band = station_band(slot, N_STATIONS, STATION, noise_gen, device)
+    _, state0 = make_multi_station_step(
+        N_BAND, offsets(N_STATIONS, STATION), STATION, AUDIO, mode="fast",
+        device=device)
+    audio, _ = step(band, state0)
+    a = audio[slot].cpu().numpy().astype(np.float64)[2000:-2000]
+    snr = (tone_snr_db(a[:, 0], AUDIO, 440.0),
+           tone_snr_db(a[:, 1], AUDIO, 1000.0))
+    print(f"[station] slot {slot}: left 440 Hz {snr[0]:.1f} dB, right "
+          f"1 kHz {snr[1]:.1f} dB (bound {SNR_MIN_DB:.0f} dB)")
+    if not min(snr) > SNR_MIN_DB:
+        raise AssertionError(f"stereo tone SNR {snr} below {SNR_MIN_DB} dB")
+
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], **kstats[name]}
+        for name, (src, rep) in KERNELS.items()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

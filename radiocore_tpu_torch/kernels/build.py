@@ -1,0 +1,129 @@
+"""Build the port's CUDA sources (``csrc/*.cu``) with ``nvcc`` and load them.
+
+All kernels go into ONE shared library with a plain C interface, bound
+with :mod:`ctypes` (no PyTorch headers, so the build takes seconds). The
+library lands in ``radiocore_tpu_torch/_build/<hash>/``, keyed by a hash
+of the sources and flags, and is built at first use. A failed build
+raises with ``nvcc``'s own error output.
+
+Nothing here runs at import time: the CPU tests import every module of
+the port on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import List, Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+LIB_NAME = "libradiocore_kernels.so"
+
+# sm_90a: Hopper with its architecture-specific features. No
+# --use_fast_math: __sinf/__cosf lose digits on twiddle and window phases.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildResult:
+    path: Path
+    seconds: float      # 0.0 when the library was already built
+    log: str            # nvcc/ptxas output of the build that made it
+
+
+def sources() -> List[Path]:
+    return sorted(list(CSRC_DIR.glob("*.cu")) + list(CSRC_DIR.glob("*.cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the port's CUDA kernels need the "
+                           "CUDA toolkit (nvcc on PATH or /usr/local/cuda)")
+    return path
+
+
+def build() -> BuildResult:
+    """Compile ``csrc/*.cu`` into the keyed build directory (once)."""
+    out_dir = BUILD_DIR / source_hash()
+    lib = out_dir / LIB_NAME
+    log_path = out_dir / "build.log"
+    if lib.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return BuildResult(lib, 0.0, log)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib)
+    return BuildResult(lib, seconds, log)
+
+
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# Argument types of every C entry point in csrc/ (pointers and the
+# stream as void*, so ctypes never truncates them to 32 bits).
+_SIGNATURES = {
+    "rc_fft_pass": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                    _L, _L, _I, _P],
+    "rc_extract_pass": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
+                        _L, _L, _L, _L, _L, _I, _L, _L, _L, _F, _P],
+    "rc_fir": [_P, _L, _P, _L, _P, _P, _L, _L, _I, _P],
+}
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if needed."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build().path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

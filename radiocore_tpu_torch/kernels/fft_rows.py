@@ -1,0 +1,290 @@
+"""K-FFT: batched power-of-two FFT of rows, hand-written for Hopper.
+
+Counterpart of ``radiocore_tpu/kernels/fft_pallas.py``. The kernel
+(``csrc/fft_rows.cu`` over ``csrc/fft_common.cuh``) computes a batch of
+sub-FFTs of at most :data:`SUB_MAX` points per pass; :func:`plan` chains
+passes into the four-step form (two passes up to ``SUB_MAX**2`` points,
+three above), with the twiddle fused into the first pass's store and the
+last pass storing in natural order.
+
+Every public function takes its tensor's device as the route: a CUDA
+tensor launches the kernel (or raises), a CPU tensor runs the plain
+PyTorch version beside it (``torch.fft``), which the CPU tests and the
+on-card comparison use.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+MIN_ROW = 256
+MAX_ROW = 1 << 19
+SUB_MAX = 4096          # longest sub-FFT of one pass (32 KB of complex64)
+BLOCK_POINTS = 16384    # points per block: P sub-FFTs of length L
+
+
+class LaunchCounter:
+    """Number of kernel launches since the last :meth:`reset`."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+launches = LaunchCounter()
+
+
+@dataclasses.dataclass(frozen=True)
+class Pass:
+    """One kernel launch: sub-FFT (b0, b1, s) reads element j at
+    ``b0*ib0 + b1*ib1 + s*is_ + j*ij`` of ``src`` and writes element k at
+    ``b0*ob0 + b1*ob1 + s*os + k*ok`` of ``dst``, times the twiddle
+    ``exp(sign*2πi*s*k/tw_n)`` when ``tw_n``."""
+    L: int
+    P: int
+    S: int
+    B0: int
+    B1: int
+    ib0: int
+    ib1: int
+    is_: int
+    ij: int
+    ob0: int
+    ob1: int
+    os: int
+    ok: int
+    tw_n: int
+    src: str    # "x" (input), "y" (output) or "s" (scratch)
+    dst: str
+
+
+def _is_pow2(n: int) -> bool:
+    return n >= 1 and (n & (n - 1)) == 0
+
+
+def _split(n: int) -> Tuple[int, int]:
+    """``n = n1·n2``, n1 ≤ SUB_MAX, as balanced as that allows."""
+    lg = n.bit_length() - 1
+    n1 = 1 << min((lg + 1) // 2, SUB_MAX.bit_length() - 1)
+    return n1, n // n1
+
+
+def _group(L: int, S: int) -> int:
+    """Sub-FFTs per block: fill BLOCK_POINTS, at most next_pow2(S)."""
+    p = max(BLOCK_POINTS // L, 1)
+    return min(p, 1 << max(S - 1, 0).bit_length())
+
+
+@functools.lru_cache(maxsize=64)
+def plan(n: int, batch: int) -> Tuple[Pass, ...]:
+    """Passes for ``batch`` contiguous rows of ``n`` points (pow2 ≥ 2)."""
+    if not _is_pow2(n) or n < 2:
+        raise ValueError(f"fft plan: n={n} is not a power of two >= 2")
+    if n <= SUB_MAX:
+        # One pass; the rows are the sub-FFT index s.
+        return (Pass(n, _group(n, batch), batch, 1, 1, 0, 0, n, 1,
+                     0, 0, n, 1, 0, "x", "y"),)
+    n1, n2 = _split(n)
+    # j = n2·j1 + j2, k = k1 + n1·k2: pass 1 is the n1-point DFT over j1
+    # for each j2 (= s), twiddled by W_n^{j2·k1} and stored at k1·n2 + j2.
+    first = Pass(n1, _group(n1, n2), n2, 1, batch, 0, n, 1, n2,
+                 0, n, 1, n2, n, "x", "y" if n2 > SUB_MAX else "s")
+    if n2 <= SUB_MAX:
+        # Pass 2: the n2-point DFT of each row k1 (= s), stored at
+        # k1 + n1·k2 (natural order).
+        return (first, Pass(n2, _group(n2, n1), n1, 1, batch, 0, n, n2, 1,
+                            0, n, 1, n1, 0, "s", "y"))
+    # n2 = n21·n22 > SUB_MAX: the rows of pass 1's output are themselves
+    # two-pass transforms, batched over (row, k1), whose last pass stores
+    # straight to k1 + n1·(k2a + n21·k2b).
+    n21, n22 = _split(n2)
+    if n22 > SUB_MAX:
+        raise ValueError(f"fft plan: n={n} needs more than three passes")
+    second = Pass(n21, _group(n21, n22), n22, batch, n1, n, n2, 1, n22,
+                  n, n2, 1, n22, n2, "y", "s")
+    third = Pass(n22, _group(n22, n21), n21, batch, n1, n, n2, n22, 1,
+                 n, 1, n1, n1 * n21, 0, "s", "y")
+    return (first, second, third)
+
+
+def _fft_kernel(x: torch.Tensor, sign: float) -> torch.Tensor:
+    """Launch the pass plan on a contiguous complex64 CUDA tensor."""
+    from radiocore_tpu_torch.kernels import build
+    if x.dtype != torch.complex64:
+        raise TypeError(f"fft_rows: kernel takes complex64, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("fft_rows: kernel takes a contiguous tensor")
+    n = int(x.shape[-1])
+    batch = x.numel() // n
+    passes = plan(n, batch)
+    lib = build.library()
+    y = torch.empty_like(x)
+    bufs = {"x": x, "y": y}
+    if any("s" in (p.src, p.dst) for p in passes):
+        bufs["s"] = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    sgn = -1 if sign < 0 else 1
+    for p in passes:
+        err = lib.rc_fft_pass(bufs[p.src].data_ptr(), bufs[p.dst].data_ptr(),
+                              p.L, p.P, p.S, p.B0, p.B1, p.ib0, p.ib1,
+                              p.is_, p.ij, p.ob0, p.ob1, p.os, p.ok, p.tw_n,
+                              sgn, stream)
+        build.check(err, f"rc_fft_pass(L={p.L}, n={n})")
+        launches.count += 1
+    return y
+
+
+def fft_pow2_plain(x: torch.Tensor, sign: float = -1.0) -> torch.Tensor:
+    """Plain version: unnormalized DFT along the last axis (torch.fft)."""
+    if sign < 0:
+        return torch.fft.fft(x, dim=-1)
+    return torch.fft.ifft(x, dim=-1, norm="forward")
+
+
+def _route(x: torch.Tensor, sign: float) -> torch.Tensor:
+    if x.is_cuda:
+        return _fft_kernel(x, sign)
+    if x.device.type != "cpu":
+        raise ValueError(f"fft_rows: no kernel for device {x.device}")
+    return fft_pow2_plain(x, sign)
+
+
+def _as_complex(x: torch.Tensor) -> torch.Tensor:
+    return x if x.is_complex() else x.to(torch.complex64)
+
+
+def _check_row(length: int) -> None:
+    if not _is_pow2(length) or not (MIN_ROW <= length <= MAX_ROW):
+        raise ValueError(f"fft_pow2: row length {length} unsupported "
+                         f"(pow2 in [{MIN_ROW}, {MAX_ROW}])")
+
+
+def fft_pow2(x: torch.Tensor, sign: float = -1.0) -> torch.Tensor:
+    """Unnormalized DFT along the last axis of pow2 rows in
+    [MIN_ROW, MAX_ROW]; any leading batch dims. ``sign=-1`` forward,
+    ``+1`` backward (the caller scales by 1/L)."""
+    x = _as_complex(x)
+    _check_row(int(x.shape[-1]))
+    return _route(x, sign)
+
+
+def fft_pow2_planar(xr: torch.Tensor, xi: torch.Tensor,
+                    sign: float = -1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fft_pow2` on (real, imag) float32 planes."""
+    y = fft_pow2(torch.complex(xr.float(), xi.float()), sign)
+    return y.real, y.imag
+
+
+def ifft_pow2(x: torch.Tensor) -> torch.Tensor:
+    """Normalized inverse counterpart of :func:`fft_pow2`."""
+    return fft_pow2(x, sign=+1.0) / x.shape[-1]
+
+
+@functools.lru_cache(maxsize=32)
+def _untangle_weights(n: int, device: torch.device
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``A = (1 − i·w)/2`` and ``B = (1 + i·w)/2`` with
+    ``w = exp(−2πi·k/n)``, k = 0..n/2 (float64-derived complex64)."""
+    w = np.exp(-2j * np.pi * np.arange(n // 2 + 1, dtype=np.float64) / n)
+    return tuple(torch.from_numpy((0.5 * (1 + s * 1j * w)).astype(
+        np.complex64)).to(device) for s in (-1, 1))
+
+
+@functools.lru_cache(maxsize=32)
+def _half_twiddle(n: int, sign: float, device: torch.device) -> torch.Tensor:
+    """exp(sign·2πi·k/n) for k = 0..n/2 (float64-derived complex64)."""
+    k = np.arange(n // 2 + 1, dtype=np.float64)
+    w = np.exp(sign * 2j * np.pi * k / n).astype(np.complex64)
+    return torch.from_numpy(w).to(device)
+
+
+def rfft_untangle(z: torch.Tensor, n: int) -> torch.Tensor:
+    """rfft bins of a real row of ``n`` points from the length-n/2 FFT
+    ``Z`` of its even/odd-packed samples: ``X[k] = A[k]·Z[k] +
+    B[k]·conj(Z[h−k])`` for k = 0..h, with ``Z[h] = Z[0]``."""
+    zf = torch.cat([z, z[..., :1]], dim=-1)
+    a, b = _untangle_weights(n, z.device)
+    return torch.addcmul(a * zf, b, torch.flip(zf, dims=(-1,)).conj())
+
+
+def irfft_tangle(X: torch.Tensor, n: int) -> torch.Tensor:
+    """The length-n/2 complex row whose unnormalized backward FFT holds
+    the even/odd samples of ``irfft(X, n)·n/2``; the imaginary parts of
+    the DC and Nyquist bins are ignored (np.fft.irfft)."""
+    h = n // 2
+    X = X.to(torch.complex64)
+    edge = torch.zeros(h + 1, dtype=torch.float32, device=X.device)
+    edge[0] = edge[h] = 1.0
+    X = X - 1j * (edge * X.imag)
+    xrev = torch.conj(torch.flip(X, dims=(-1,)))
+    ze = 0.5 * (X + xrev)
+    zo = 0.5 * (X - xrev) * _half_twiddle(n, +1.0, X.device)
+    return (ze + 1j * zo)[..., :h].contiguous()
+
+
+def rfft_pow2_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`rfft_pow2` (torch.fft.rfft)."""
+    return torch.fft.rfft(x, dim=-1)
+
+
+def rfft_pow2(x: torch.Tensor) -> torch.Tensor:
+    """Real-input FFT along the last axis → ``n//2 + 1`` bins.
+
+    On CUDA: even/odd samples packed as one length-n/2 complex row (a
+    free view of the float32 data), the kernel, then
+    :func:`rfft_untangle` as elementwise torch.
+    """
+    n = int(x.shape[-1])
+    h = n // 2
+    _check_row(h)
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"rfft_pow2: no kernel for device {x.device}")
+        return rfft_pow2_plain(x)
+    if x.dtype != torch.float32:
+        raise TypeError(f"rfft_pow2: kernel takes float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("rfft_pow2: kernel takes a contiguous tensor")
+    z = _fft_kernel(torch.view_as_complex(x.view(x.shape[:-1] + (h, 2))),
+                    -1.0)
+    return rfft_untangle(z, n)
+
+
+def irfft_pow2(X: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`rfft_pow2` to real length ``n``; the imaginary
+    parts of the DC and Nyquist bins are ignored (np.fft.irfft)."""
+    n = int(n)
+    h = n // 2
+    _check_row(h)
+    if X.shape[-1] != h + 1:
+        raise ValueError(f"irfft_pow2: expected {h + 1} bins, "
+                         f"got {X.shape[-1]}")
+    if not X.is_cuda:
+        if X.device.type != "cpu":
+            raise ValueError(f"irfft_pow2: no kernel for device {X.device}")
+        return torch.fft.irfft(X, n=n, dim=-1)
+    y = _fft_kernel(irfft_tangle(X, n), +1.0)
+    return torch.view_as_real(y).reshape(X.shape[:-1] + (n,)) * (1.0 / h)
+
+
+def fft_large_pow2(x: torch.Tensor, sign: float = -1.0) -> torch.Tensor:
+    """One long pow2 FFT (e.g. the 2^24 band) along the last axis.
+
+    Rows up to MAX_ROW are :func:`fft_pow2`; longer ones use the same
+    kernel's multi-pass plan (two passes up to 2^24, three above).
+    """
+    x = _as_complex(x)
+    n = int(x.shape[-1])
+    if not _is_pow2(n):
+        raise ValueError(f"fft_large_pow2: n={n} not a power of 2")
+    if n <= MAX_ROW:
+        return fft_pow2(x, sign)
+    return _route(x, sign)
+
