@@ -15,7 +15,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    generator, checks that every kernel launched, and compares chunk 1
    with the same port run on the CPU;
 4. decodes one real FM stereo station (440 Hz left, 1 kHz right) placed
-   in a 2^24 band and checks both tones' SNR.
+   in a 2^24 band and checks both tones' SNR;
+5. runs K-MIXED (the 24M = 96 · 2^18 band FFT), K-EXTRACT on that band,
+   K-XDEMOD and K-XDEMOD-SPEC against their plain versions at the
+   96-station shapes;
+6. drives ``make_multi_station_step(extract_demod="spec")`` for 96
+   stations × 262 144 S/s (band 24M) over 5 chained chunks — launch
+   counters, step and stage times, chunk 1 against the CPU, one real
+   stereo station — and the ``"fused"`` and default modes at 96
+   stations over 2 chunks each (launch counters, chunk 1 against the
+   CPU).
 
 Every phase raises on failure. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result. The
@@ -42,8 +51,17 @@ AUDIO = 49_152
 N_BAND = N_STATIONS * STATION
 CHUNKS = 5
 
-REL_L2_MAX = 1e-5     # K-FFT and K-EXTRACT against complex128 references
+# The 96-station plan (bench.py's station count knob at 96): band
+# 96 · 2^18 = 25 165 824, not a power of two, so the band FFT is K-MIXED.
+N_STATIONS_96 = 96
+N_BAND_96 = N_STATIONS_96 * STATION
+CHUNKS_MODES = 2      # the fused and default modes at 96 stations
+
+REL_L2_MAX = 1e-5     # K-FFT, K-MIXED, K-EXTRACT against complex128
 FIR_ABS_MAX = 1e-5    # K-FIR against float64
+# The bounds of tests/test_extract_demod_pallas.py (:46, :148).
+XDEMOD_ABS_MAX = 5e-5   # K-XDEMOD against float64
+XSPEC_REL_MAX = 3e-5    # K-XDEMOD-SPEC, max abs / max |ref|
 E2E_ABS_MAX = 1e-4    # card against CPU, audio of chunk 1
 SNR_MIN_DB = 20.0     # per stereo tone, as the repository's verify drive
 
@@ -54,6 +72,12 @@ KERNELS = {
                   "radiocore_tpu/kernels/extract_pallas.py:108"),
     "K-FIR": ("radiocore_tpu_torch/csrc/fir.cu",
               "radiocore_tpu/kernels/fir_pallas.py:150"),
+    "K-MIXED": ("radiocore_tpu_torch/csrc/fft_mixed.cu",
+                "radiocore_tpu/kernels/fft_pallas.py:461"),
+    "K-XDEMOD": ("radiocore_tpu_torch/csrc/extract_demod.cu",
+                 "radiocore_tpu/kernels/extract_demod_pallas.py:153"),
+    "K-XDEMOD-SPEC": ("radiocore_tpu_torch/csrc/extract_demod.cu",
+                      "radiocore_tpu/kernels/extract_demod_pallas.py:278"),
 }
 
 
@@ -134,26 +158,32 @@ def station_band(station: int, c: int, sc: int, noise_gen, device):
     return band.to(torch.complex64)
 
 
+def crandn(gen, device, *shape):
+    import torch
+    return torch.complex(torch.randn(shape, generator=gen, device=device),
+                         torch.randn(shape, generator=gen, device=device))
+
+
+def report(what, err, bound, ms, plain_ms):
+    """Print one kernel check; raise if ``err`` is above ``bound`` (a NaN
+    error fails too)."""
+    print(f"[kernel] {what}: {err:.3e} (bound {bound:.0e}) "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if not err <= bound:
+        raise AssertionError(f"{what}: error {err} above {bound}")
+
+
 def check_kernels(device, gen) -> dict:
     """Phase 2: each kernel against its plain version at the main path's
-    shapes; returns per-kernel max_abs_err/ms/plain_ms. A NaN error fails
-    its bound check."""
+    shapes; returns per-kernel max_abs_err/ms/plain_ms."""
+    import functools
     import torch
     from radiocore_tpu_torch.kernels import extract, fft_rows, fir
     from radiocore_tpu_torch.ops.design import deemphasis_taps
 
-    def crandn(*shape):
-        return torch.complex(torch.randn(shape, generator=gen, device=device),
-                             torch.randn(shape, generator=gen, device=device))
-
-    def report(what, err, bound, ms, plain_ms):
-        print(f"[kernel] {what}: {err:.3e} (bound {bound:.0e}) "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        if not err <= bound:
-            raise AssertionError(f"{what}: error {err} above {bound}")
-
+    crandn_ = functools.partial(crandn, gen, device)
     out = {}
-    rows = crandn(N_STATIONS, STATION)
+    rows = crandn_(N_STATIONS, STATION)
     got = fft_rows.fft_pow2(rows)
     err = rel_l2(got, torch.fft.fft(rows.to(torch.complex128)))
     report("K-FFT rows 64x2^18 fwd rel_l2", err, REL_L2_MAX,
@@ -161,7 +191,7 @@ def check_kernels(device, gen) -> dict:
            time_ms(lambda: fft_rows.fft_pow2_plain(rows)))
     del rows, got
 
-    band = crandn(N_BAND)
+    band = crandn_(N_BAND)
     band64 = band.to(torch.complex128)
     for sign, ref in ((-1.0, torch.fft.fft(band64)),
                       (+1.0, torch.fft.ifft(band64, norm="forward"))):
@@ -218,35 +248,193 @@ def check_kernels(device, gen) -> dict:
     return out
 
 
-def run_main_path(device, gen, c=N_STATIONS, sc=STATION, ac=AUDIO,
-                  chunks=CHUNKS):
-    """Phase 3: the main path over ``chunks`` chained chunks; returns the
-    first chunk's band and audio and the kernels' launch counts."""
+def check_band_kernels(device, gen) -> dict:
+    """Phase 5: K-MIXED, K-EXTRACT, K-XDEMOD and K-XDEMOD-SPEC at the
+    96-station shapes (band 96 · 2^18) against their plain versions;
+    returns per-kernel max_abs_err/ms/plain_ms."""
     import torch
-    from radiocore_tpu_torch.kernels import extract, fft_rows, fir
+    from radiocore_tpu_torch.kernels import extract, extract_demod, fft_mixed
+    from radiocore_tpu_torch.models.wbfm import make_wbfm_step
+    from radiocore_tpu_torch.ops.channelize import uniform_extraction_start
+
+    c, m, n = N_STATIONS_96, STATION, N_BAND_96
+    c128 = torch.complex128
+    out = {}
+    band = crandn(gen, device, n)
+    band64 = band.to(c128)
+    for sign, ref in ((-1.0, torch.fft.fft(band64)),
+                      (+1.0, torch.fft.ifft(band64, norm="forward"))):
+        got = fft_mixed.fft_large_mixed(band, sign)
+        err = rel_l2(got, ref)
+        ms = time_ms(lambda: fft_mixed.fft_large_mixed(band, sign))
+        plain = time_ms(lambda: fft_mixed.fft_large_mixed_plain(band, sign))
+        name = "fwd" if sign < 0 else "bwd"
+        report(f"K-MIXED band 96*2^18 {name} rel_l2", err, REL_L2_MAX, ms,
+               plain)
+        if sign < 0:
+            out["K-MIXED"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
+                                  plain_ms=plain)
+        del got, ref
+    del band64
+
+    s_norm = 1.0 / n
+    spec64 = band.to(c128)
+    for a0 in (n // 2, n // 2 + 12_345):
+        got = extract.extract_rows(band, a0, c, m, s_norm)
+        err = rel_l2(got, extract.extract_rows_plain(spec64, a0, c, m,
+                                                     s_norm))
+        report(f"K-EXTRACT 96x2^18 from 96*2^18 a0={a0} rel_l2", err,
+               REL_L2_MAX,
+               time_ms(lambda: extract.extract_rows(band, a0, c, m, s_norm)),
+               time_ms(lambda: extract.extract_rows_plain(band, a0, c, m,
+                                                          s_norm)))
+        del got
+    del spec64, band
+
+    # An FM band (not noise: see PERF.md on the demod of a noise band).
+    spec = torch.fft.fft(fm_band(gen, c, m, device))
+    spec64 = spec.to(c128)
+    shifts = tuple(-o for o in offsets(c, m))
+    a0 = uniform_extraction_start(n, shifts, m)
+    got = extract_demod.extract_demod_rows(spec, a0, c, m)
+    ref = extract_demod.extract_demod_rows_plain(spec64, a0, c, m)
+    if not bool((got[:, 0] == 0).all()):
+        raise AssertionError("K-XDEMOD: quad[:, 0] is not exactly 0")
+    err = max_abs(got, ref)
+    ms = time_ms(lambda: extract_demod.extract_demod_rows(spec, a0, c, m))
+    plain = time_ms(
+        lambda: extract_demod.extract_demod_rows_plain(spec, a0, c, m))
+    report(f"K-XDEMOD 96x2^18 from 96*2^18 a0={a0} max_abs", err,
+           XDEMOD_ABS_MAX, ms, plain)
+    out["K-XDEMOD"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    del got, ref
+
+    keep = int(make_wbfm_step(m, AUDIO, mode="fast_spec").needed_bins)
+    got = extract_demod.extract_demod_spec_rows(spec, a0, c, m,
+                                                keep_bins=keep)
+    ref = extract_demod.extract_demod_spec_rows_plain(spec64, a0, c, m,
+                                                      keep_bins=keep)
+    if tuple(got.shape) != (c, keep):
+        raise AssertionError(f"K-XDEMOD-SPEC shape {tuple(got.shape)}")
+    err = max_abs(got, ref) / float(ref.abs().max())
+    ms = time_ms(lambda: extract_demod.extract_demod_spec_rows(
+        spec, a0, c, m, keep_bins=keep))
+    plain = time_ms(lambda: extract_demod.extract_demod_spec_rows_plain(
+        spec, a0, c, m, keep_bins=keep))
+    report(f"K-XDEMOD-SPEC 96x2^18 keep {keep} max_abs/max|ref|", err,
+           XSPEC_REL_MAX, ms, plain)
+    out["K-XDEMOD-SPEC"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
+                                plain_ms=plain)
+    return out
+
+
+def path_counters(c: int, extract_demod: str) -> dict:
+    """The launch counters of the kernels a path must go through."""
+    from radiocore_tpu_torch.kernels import (extract, extract_demod as xd,
+                                             fft_mixed, fft_rows, fir)
+    band = {"K-FFT": fft_rows.launches} if c * STATION == N_BAND else {
+        "K-MIXED": fft_mixed.launches}
+    rfft = {"K-FFT": fft_rows.launches}
+    middle = {"off": {"K-EXTRACT": extract.launches, **rfft},
+              "fused": {"K-XDEMOD": xd.launches, **rfft},
+              "spec": {"K-XDEMOD-SPEC": xd.spec_launches}}[extract_demod]
+    return {**band, **middle, "K-FIR": fir.launches}
+
+
+def run_main_path(device, gen, c=N_STATIONS, sc=STATION, ac=AUDIO,
+                  chunks=CHUNKS, extract_demod="off"):
+    """Drive a path over ``chunks`` chained chunks; returns the step, its
+    state, the first chunk's band and audio and the launch counts of the
+    kernels the path must go through (counted from 0 around the run)."""
+    import torch
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
 
     step, state = make_multi_station_step(c * sc, offsets(c, sc), sc, ac,
-                                          mode="fast", device=device)
+                                          mode="fast",
+                                          extract_demod=extract_demod,
+                                          device=device)
     bands = [fm_band(gen, c, sc, device) for _ in range(chunks)]
-    counters = {"K-FFT": fft_rows.launches, "K-EXTRACT": extract.launches,
-                "K-FIR": fir.launches}
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: 0)
-    sync()
+    counters = path_counters(c, extract_demod)
+    torch.cuda.synchronize()
     for counter in counters.values():
         counter.reset()
     audios = []
     for band in bands:
         audio, state = step(band, state)
         audios.append(audio)
-    sync()
+    torch.cuda.synchronize()
     launches = {name: ctr.count for name, ctr in counters.items()}
     for audio in audios:
         if tuple(audio.shape) != (c, ac, 2):
             raise AssertionError(f"audio shape {tuple(audio.shape)}")
         if not bool(torch.isfinite(audio).all()):
             raise AssertionError("non-finite audio")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} never launched on the "
+                                 f"extract_demod={extract_demod!r} path")
     return step, state, bands[0], audios[0], launches
+
+
+def step_ms(step, band, state) -> float:
+    """Min over 10 steps (CUDA events) from ``state``."""
+    import torch
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, state = step(band, state)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return min(s.elapsed_time(e) for s, e in times)
+
+
+def stage_ms(step, band, state) -> dict:
+    """Median of 20 per stage, each fed the previous stage's output."""
+    (n1, f1), (n2, f2), (n3, f3) = step.stages.items()
+    x1 = f1(band)
+    x2 = f2(x1)
+    return {n1: time_ms(lambda: f1(band)), n2: time_ms(lambda: f2(x1)),
+            n3: time_ms(lambda: f3(x2, state))}
+
+
+def against_cpu(what, c, band1, audio1, extract_demod="off") -> float:
+    """Chunk 1 through the same port on the CPU; raise above the bound."""
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    step_cpu, state_cpu = make_multi_station_step(
+        c * STATION, offsets(c, STATION), STATION, AUDIO, mode="fast",
+        extract_demod=extract_demod, device="cpu")
+    audio_cpu, _ = step_cpu(band1.cpu(), state_cpu)
+    e2e = max_abs(audio1.cpu(), audio_cpu)
+    print(f"[{what}] chunk 1 card vs CPU max_abs {e2e:.3e} "
+          f"(bound {E2E_ABS_MAX:.0e})")
+    if not e2e <= E2E_ABS_MAX:
+        raise AssertionError(f"{what}: card and CPU audio differ by {e2e}")
+    return e2e
+
+
+def check_station(what, step, c, device, extract_demod="off"):
+    """One real stereo station in slot c // 3 of a c-station band."""
+    import numpy as np
+    import torch
+    from oracles import tone_snr_db
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    slot = c // 3
+    noise_gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    band = station_band(slot, c, STATION, noise_gen, device)
+    _, state0 = make_multi_station_step(
+        c * STATION, offsets(c, STATION), STATION, AUDIO, mode="fast",
+        extract_demod=extract_demod, device=device)
+    audio, _ = step(band, state0)
+    a = audio[slot].cpu().numpy().astype(np.float64)[2000:-2000]
+    snr = (tone_snr_db(a[:, 0], AUDIO, 440.0),
+           tone_snr_db(a[:, 1], AUDIO, 1000.0))
+    print(f"[{what}] slot {slot}: left 440 Hz {snr[0]:.1f} dB, right "
+          f"1 kHz {snr[1]:.1f} dB (bound {SNR_MIN_DB:.0f} dB)")
+    if not min(snr) > SNR_MIN_DB:
+        raise AssertionError(f"stereo tone SNR {snr} below {SNR_MIN_DB} dB")
 
 
 def main() -> int:
@@ -256,12 +444,10 @@ def main() -> int:
               "GPU", file=sys.stderr)
         return 2
     sys.path[:0] = [str(REPO), str(REPO / "tests")]
-    import numpy as np
-    from oracles import tone_snr_db
     from radiocore_tpu_torch.kernels import build
-    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
     from radiocore_tpu_torch.runtime.platform import nvidia_smi_name_power
 
+    t_start = time.perf_counter()
     smi = nvidia_smi_name_power()
     if not smi:
         raise RuntimeError("nvidia-smi gave no card name and power limit")
@@ -303,57 +489,44 @@ def main() -> int:
     step, state, band1, audio1, launches = run_main_path(device, gen)
     print(f"[main] {N_STATIONS} x {STATION} -> {AUDIO}, {CHUNKS} chunks: "
           f"audio {tuple(audio1.shape)} finite; launches {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
     band = fm_band(gen, N_STATIONS, STATION, device)
-    times = []
-    for _ in range(10):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        _, state = step(band, state)
-        end.record()
-        times.append((start, end))
-    torch.cuda.synchronize()
-    step_ms = min(s.elapsed_time(e) for s, e in times)
-    st = step.stages
-    spec = st["band_fft"](band)
-    stations = st["extract"](spec)
-    stage_ms = {
-        "band_fft": time_ms(lambda: st["band_fft"](band)),
-        "extract": time_ms(lambda: st["extract"](spec)),
-        "demod_tail": time_ms(lambda: st["demod_tail"](stations, state)),
-    }
-    print(f"[main] step {step_ms:.3f} ms (min of 10); stages (median of 20) "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()))
-    del spec, stations
-    step_cpu, state_cpu = make_multi_station_step(
-        N_BAND, offsets(N_STATIONS, STATION), STATION, AUDIO, mode="fast",
-        device="cpu")
-    audio_cpu, _ = step_cpu(band1.cpu(), state_cpu)
-    e2e = max_abs(audio1.cpu(), audio_cpu)
-    print(f"[main] chunk 1 card vs CPU max_abs {e2e:.3e} "
-          f"(bound {E2E_ABS_MAX:.0e})")
-    if not e2e <= E2E_ABS_MAX:
-        raise AssertionError(f"card and CPU audio differ by {e2e}")
+    ms = step_ms(step, band, state)
+    stages = stage_ms(step, band, state)
+    print(f"[main] step {ms:.3f} ms (min of 10); stages (median of 20) "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+    against_cpu("main", N_STATIONS, band1, audio1)
 
     # Phase 4: one real station.
-    slot = N_STATIONS // 3
-    noise_gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    band = station_band(slot, N_STATIONS, STATION, noise_gen, device)
-    _, state0 = make_multi_station_step(
-        N_BAND, offsets(N_STATIONS, STATION), STATION, AUDIO, mode="fast",
-        device=device)
-    audio, _ = step(band, state0)
-    a = audio[slot].cpu().numpy().astype(np.float64)[2000:-2000]
-    snr = (tone_snr_db(a[:, 0], AUDIO, 440.0),
-           tone_snr_db(a[:, 1], AUDIO, 1000.0))
-    print(f"[station] slot {slot}: left 440 Hz {snr[0]:.1f} dB, right "
-          f"1 kHz {snr[1]:.1f} dB (bound {SNR_MIN_DB:.0f} dB)")
-    if not min(snr) > SNR_MIN_DB:
-        raise AssertionError(f"stereo tone SNR {snr} below {SNR_MIN_DB} dB")
+    check_station("station", step, N_STATIONS, device)
+    del step, state, band1, audio1, band
 
+    # Phase 5: the 96-station kernels against their plain versions.
+    kstats.update(check_band_kernels(device, gen))
+
+    # Phase 6: the 96-station paths, the spec path first.
+    c = N_STATIONS_96
+    for xd, chunks in (("spec", CHUNKS), ("fused", CHUNKS_MODES),
+                       ("off", CHUNKS_MODES)):
+        what = f"96 {xd}"
+        step, state, band1, audio1, counts = run_main_path(
+            device, gen, c=c, chunks=chunks, extract_demod=xd)
+        print(f"[{what}] {c} x {STATION} -> {AUDIO}, {chunks} chunks: "
+              f"audio {tuple(audio1.shape)} finite; launches {counts}")
+        for name, count in counts.items():
+            launches.setdefault(name, count)
+        band = fm_band(gen, c, STATION, device)
+        line = f"[{what}] step {step_ms(step, band, state):.3f} ms (min of 10)"
+        if xd == "spec":
+            line += "; stages (median of 20) " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in stage_ms(step, band,
+                                                       state).items())
+        print(line)
+        against_cpu(what, c, band1, audio1, xd)
+        if xd == "spec":
+            check_station(what + " station", step, c, device, xd)
+        del step, state, band1, audio1, band
+
+    print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **kstats[name]}

@@ -1,10 +1,12 @@
 """Build the port's CUDA sources (``csrc/*.cu``) with ``nvcc`` and load them.
 
 All kernels go into ONE shared library with a plain C interface, bound
-with :mod:`ctypes` (no PyTorch headers, so the build takes seconds). The
-library lands in ``radiocore_tpu_torch/_build/<hash>/``, keyed by a hash
-of the sources and flags, and is built at first use. A failed build
-raises with ``nvcc``'s own error output.
+with :mod:`ctypes` (no PyTorch headers, so the build takes seconds). Each
+source compiles in its own ``nvcc`` process, all started together, and
+one more links the objects. The library lands in
+``radiocore_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
+and flags, and is built at first use. A failed build raises with
+``nvcc``'s own error output.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on machines without ``nvcc``.
@@ -31,8 +33,10 @@ LIB_NAME = "libradiocore_kernels.so"
 
 # sm_90a: Hopper with its architecture-specific features. No
 # --use_fast_math: __sinf/__cosf lose digits on twiddle and window phases.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +51,7 @@ def sources() -> List[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -64,6 +68,20 @@ def find_nvcc() -> str:
     return path
 
 
+def _run_all(cmds: List[List[str]]) -> str:
+    """Run the commands at once; their joined output, or raise with it."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(outs)
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return log
+
+
 def build() -> BuildResult:
     """Compile ``csrc/*.cu`` into the keyed build directory (once)."""
     out_dir = BUILD_DIR / source_hash()
@@ -73,20 +91,21 @@ def build() -> BuildResult:
         log = log_path.read_text() if log_path.exists() else ""
         return BuildResult(lib, 0.0, log)
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, lib)
+    nvcc = find_nvcc()
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        cu = [s for s in sources() if s.suffix == ".cu"]
+        objs = [str(work / f"{src.stem}.o") for src in cu]
+        t0 = time.perf_counter()
+        log = _run_all([[nvcc, *COMPILE_FLAGS, "-I", str(CSRC_DIR), "-c",
+                         "-o", obj, str(src)] for src, obj in zip(cu, objs)])
+        tmp = str(work / LIB_NAME)
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
+        seconds = time.perf_counter() - t0
+        log_path.write_text(log)
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return BuildResult(lib, seconds, log)
 
 
@@ -106,6 +125,11 @@ _SIGNATURES = {
     "rc_extract_pass": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
                         _L, _L, _L, _L, _L, _I, _L, _L, _L, _F, _P],
     "rc_fir": [_P, _L, _P, _L, _P, _P, _L, _L, _I, _P],
+    "rc_mixed_column": [_P, _P, _I, _L, _I, _P],
+    "rc_demod_pass": [_P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
+                      _F, _P],
+    "rc_keep_pass": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                     _L, _L, _I, _L, _P],
 }
 
 

@@ -1,0 +1,223 @@
+"""K-XDEMOD and K-XDEMOD-SPEC: fused channel extraction + FM quadrature
+demod (+ the composite spectrum), hand-written for Hopper.
+
+Counterpart of ``radiocore_tpu/kernels/extract_demod_pallas.py``:
+``extract_demod_rows`` is ``quadrature_demod(extract_rows(...))`` (gain
+``1/π``, ``quad[:, 0] = 0``) without the station IQ ever reaching device
+memory, and ``extract_demod_spec_rows`` is the forward DFT of that quad,
+of which only the first ``keep_bins`` bins are written.
+
+The plan (:func:`plan`, ``csrc/extract_demod.cu``) splits ``m = n1·n2``:
+K-EXTRACT's first pass (extraction load, n1-point DFTs, twiddle), then
+the demod pass — the n2-point DFT of each row ``s`` with the demod in its
+epilogue, each block carrying one halo row so that ``x[t−1]`` is in
+shared memory — and, for SPEC, a keep pass that finishes the forward
+transform and writes bins ``< keep`` only.
+
+A CUDA tensor launches the kernels (or raises); a CPU tensor runs the
+plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from radiocore_tpu_torch.kernels import fft_rows
+from radiocore_tpu_torch.kernels.extract import (LOAD_EXTRACT, STORE_STRIDED,
+                                                 extract_rows_plain)
+from radiocore_tpu_torch.kernels.fft_rows import MIN_ROW, Pass, LaunchCounter
+from radiocore_tpu_torch.ops.demod import quadrature_demod
+
+MAX_DEMOD_ROW = 1 << 18
+LANES = 128     # the JAX kernel's lane digit, for its A == C rule
+
+launches = LaunchCounter()        # K-XDEMOD
+spec_launches = LaunchCounter()   # K-XDEMOD-SPEC
+
+
+def extract_demod_ok(n: int, m: int, c: int) -> bool:
+    """Whether the fused extract+demod kernel supports this plan (the JAX
+    package's accepted set)."""
+    return ((m & (m - 1)) == 0 and MIN_ROW <= m <= MAX_DEMOD_ROW
+            and n % m == 0 and n // m >= 2 and c <= n // m)
+
+
+def _digits(m: int) -> Tuple[int, int, int]:
+    """The JAX kernel's ``m = A·B·C`` (``fft_pallas._digits``)."""
+    rest = m // LANES
+    if rest <= LANES:
+        return rest, 1, LANES
+    return LANES, rest // LANES, LANES
+
+
+def extract_demod_spec_ok(n: int, m: int, c: int) -> bool:
+    """:func:`extract_demod_ok` and the JAX kernel's ``A == C`` rule
+    (m ≥ 2^14), so that both packages route the same plans."""
+    if not extract_demod_ok(n, m, c):
+        return False
+    a_n, _b, c_n = _digits(m)
+    return a_n == c_n
+
+
+@dataclasses.dataclass(frozen=True)
+class DemodPlan:
+    """``first``: K-EXTRACT's first pass (``rc_extract_pass``, extraction
+    load), ``x → s``. ``demod``: the demod pass (``rc_demod_pass``), rows
+    ``s`` of n2 points, ``s → y`` (quad) or ``s → t`` (SPEC, ``tw_n = m``).
+    ``keep``: SPEC's last pass (``rc_keep_pass``), ``t → y``."""
+    first: Pass
+    demod: Pass
+    keep: Optional[Pass]
+
+
+@functools.lru_cache(maxsize=32)
+def plan(m: int, c: int, keep: Optional[int] = None) -> DemodPlan:
+    """Passes for ``c`` stations of ``m`` points; ``keep`` (SPEC) is the
+    number of forward bins written per station."""
+    n1, n2 = fft_rows._split(m)
+    group = fft_rows._group
+    # j = n2·j1 + j2: the n1-point DFT over j1, twiddled, stored at
+    # k1·n2 + j2 (as K-FFT's first pass).
+    first = Pass(n1, group(n1, n2), n2, 1, c, 0, m, 1, n2, 0, m, 1, n2, m,
+                 "x", "s")
+    # Row s = k1 (n2 points, unit stride) → x̃[t] at t = s + n1·k. SPEC:
+    # the forward split j = s + n1·k has the quad rows as its first
+    # pass's inputs; output (k1', s) at k1'·n1 + s, the same strides.
+    demod = Pass(n2, group(n2, n1), n1, 1, c, 0, m, n2, 1, 0, m, 1, n1,
+                 m if keep else 0, "s", "t" if keep else "y")
+    if not keep:
+        return DemodPlan(first, demod, None)
+    # Row k1' (n1 points at k1'·n1): the DFT over s gives bin
+    # k1' + n2·k2', stored below ``keep`` only.
+    last = Pass(n1, group(n1, n2), n2, 1, c, 0, m, n1, 1, 0, keep, 1, n2, 0,
+                "t", "y", keep=keep)
+    return DemodPlan(first, demod, last)
+
+
+def _check(spectrum: torch.Tensor, c: int, m: int, what: str, ok) -> int:
+    if spectrum.dim() != 1:
+        raise ValueError(f"{what}: 1-D spectrum only")
+    n = int(spectrum.shape[-1])
+    if not ok(n, m, c):
+        raise ValueError(f"{what}: unsupported plan n={n} m={m} c={c}")
+    return n
+
+
+def _keep_bins(m: int, keep_bins: Optional[int]) -> int:
+    if keep_bins is None:
+        return m
+    if not 0 < keep_bins <= m:
+        raise ValueError(f"keep_bins {keep_bins} out of (0, {m}]")
+    return int(keep_bins)
+
+
+def _kernel(spectrum: torch.Tensor, a0: int, c: int, m: int, gain: float,
+            keep: Optional[int]) -> torch.Tensor:
+    from radiocore_tpu_torch.kernels import build
+    if spectrum.dtype != torch.complex64:
+        raise TypeError(f"extract_demod: kernel takes complex64, "
+                        f"got {spectrum.dtype}")
+    if not spectrum.is_contiguous():
+        raise ValueError("extract_demod: kernel takes a contiguous spectrum")
+    n = int(spectrum.shape[-1])
+    pl = plan(m, c, keep)
+    lib = build.library()
+    dev = spectrum.device
+    bufs = {"x": spectrum,
+            "s": torch.empty(c * m, dtype=torch.complex64, device=dev)}
+    if keep:
+        bufs["t"] = torch.empty(c * m, dtype=torch.complex64, device=dev)
+        bufs["y"] = torch.empty((c, keep), dtype=torch.complex64, device=dev)
+    else:
+        bufs["y"] = torch.empty((c, m), dtype=torch.float32, device=dev)
+    counter = spec_launches if keep else launches
+    stream = torch.cuda.current_stream().cuda_stream
+
+    p = pl.first
+    err = lib.rc_extract_pass(
+        bufs[p.src].data_ptr(), bufs[p.dst].data_ptr(), LOAD_EXTRACT,
+        STORE_STRIDED, p.L, p.P, p.S, p.B0, p.B1, p.ib0, p.ib1, p.is_, p.ij,
+        p.ob0, p.ob1, p.os, p.ok, p.tw_n, 1, n, m, int(a0), 1.0 / n, stream)
+    build.check(err, f"rc_extract_pass(L={p.L}, m={m}) for extract_demod")
+    counter.count += 1
+    p = pl.demod
+    err = lib.rc_demod_pass(
+        bufs[p.src].data_ptr(), bufs[p.dst].data_ptr(), int(bool(keep)),
+        p.L, p.P, p.S, p.B1, p.ib1, p.is_, p.ob1, p.os, p.ok, p.tw_n,
+        float(gain), stream)
+    build.check(err, f"rc_demod_pass(L={p.L}, m={m})")
+    counter.count += 1
+    if keep:
+        p = pl.keep
+        err = lib.rc_keep_pass(
+            bufs[p.src].data_ptr(), bufs[p.dst].data_ptr(), p.L, p.P, p.S,
+            p.B0, p.B1, p.ib0, p.ib1, p.is_, p.ij, p.ob0, p.ob1, p.os, p.ok,
+            p.tw_n, -1, p.keep, stream)
+        build.check(err, f"rc_keep_pass(L={p.L}, keep={keep})")
+        counter.count += 1
+    return bufs["y"]
+
+
+def extract_demod_rows_plain(spectrum: torch.Tensor, a0: int, c: int,
+                             m: int, gain: Optional[float] = None
+                             ) -> torch.Tensor:
+    """Plain version: ``quadrature_demod(extract_rows_plain(...))``."""
+    n = int(spectrum.shape[-1])
+    return quadrature_demod(extract_rows_plain(spectrum, a0, c, m, 1.0 / n),
+                            gain)
+
+
+def extract_demod_spec_rows_plain(spectrum: torch.Tensor, a0: int, c: int,
+                                  m: int, gain: Optional[float] = None,
+                                  keep_bins: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """Plain version: ``torch.fft.fft`` of the plain quad, first K bins."""
+    k = _keep_bins(m, keep_bins)
+    quad = extract_demod_rows_plain(spectrum, a0, c, m, gain)
+    return torch.fft.fft(quad, dim=-1)[:, :k]
+
+
+def _use_kernel(spectrum: torch.Tensor) -> bool:
+    """True for a CUDA tensor; False for a CPU one; raise otherwise."""
+    if spectrum.is_cuda:
+        return True
+    if spectrum.device.type != "cpu":
+        raise ValueError(f"extract_demod: no kernel for {spectrum.device}")
+    return False
+
+
+def _gain(gain: Optional[float]) -> float:
+    return 1.0 / math.pi if gain is None else float(gain)
+
+
+def extract_demod_rows(spectrum: torch.Tensor, a0: int, c: int, m: int,
+                       gain: Optional[float] = None) -> torch.Tensor:
+    """Uniform-plan extraction + FM quadrature demod: ``spectrum (n,) c64
+    → quad (c, m) f32``; station i's run starts at bin ``(a0 + i·m) mod
+    n``. Default ``gain`` 1/π; ``quad[:, 0] = 0``."""
+    n = _check(spectrum, c, m, "extract_demod_rows", extract_demod_ok)
+    a0 = int(a0) % n
+    if _use_kernel(spectrum):
+        return _kernel(spectrum, a0, c, m, _gain(gain), None)
+    return extract_demod_rows_plain(spectrum, a0, c, m, gain)
+
+
+def extract_demod_spec_rows(spectrum: torch.Tensor, a0: int, c: int,
+                            m: int, gain: Optional[float] = None,
+                            keep_bins: Optional[int] = None
+                            ) -> torch.Tensor:
+    """:func:`extract_demod_rows`, then the forward m-point DFT of each
+    quad row: ``(c, K)`` c64 with ``K = keep_bins`` (default m) — bins
+    below ``m//2 + 1`` are ``rfft(quad)``."""
+    n = _check(spectrum, c, m, "extract_demod_spec_rows",
+               extract_demod_spec_ok)
+    k = _keep_bins(m, keep_bins)
+    a0 = int(a0) % n
+    if _use_kernel(spectrum):
+        return _kernel(spectrum, a0, c, m, _gain(gain), k)
+    return extract_demod_spec_rows_plain(spectrum, a0, c, m, gain, k)

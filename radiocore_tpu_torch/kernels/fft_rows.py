@@ -46,7 +46,8 @@ class Pass:
     """One kernel launch: sub-FFT (b0, b1, s) reads element j at
     ``b0*ib0 + b1*ib1 + s*is_ + j*ij`` of ``src`` and writes element k at
     ``b0*ob0 + b1*ob1 + s*os + k*ok`` of ``dst``, times the twiddle
-    ``exp(sign*2πi*s*k/tw_n)`` when ``tw_n``."""
+    ``exp(sign*2πi*s*k/tw_n)`` when ``tw_n``; with ``keep``, only the
+    elements ``s*os + k*ok < keep`` are written."""
     L: int
     P: int
     S: int
@@ -63,6 +64,7 @@ class Pass:
     tw_n: int
     src: str    # "x" (input), "y" (output) or "s" (scratch)
     dst: str
+    keep: int = 0
 
 
 def _is_pow2(n: int) -> bool:

@@ -1,41 +1,51 @@
 """FFTs along the last axis, routed by device and size.
 
-Counterpart of ``radiocore_tpu/ops/fft.py``. Power-of-two transforms of
-at least :data:`KERNEL_MIN` points on a CUDA tensor go to K-FFT
-(``kernels/fft_rows.py``), as the JAX package sends them to its Pallas
-kernel on a TPU (``_use_pallas``); everything else is ``torch.fft``,
-which handles every size, so the JAX planner's native-FFT probe and
-four-step fallback have no counterpart here.
+Counterpart of ``radiocore_tpu/ops/fft.py``. On a CUDA tensor,
+power-of-two transforms of at least :data:`KERNEL_MIN` points go to
+K-FFT (``kernels/fft_rows.py``), as the JAX package sends them to its
+Pallas kernel on a TPU (``_use_pallas``), and sizes ``a·2^k`` (a ≤ 128,
+not a power of two) of at least :data:`MIXED_MIN` points go to K-MIXED
+(``kernels/fft_mixed.py``), as ``_use_mixed`` sends them to
+``fft_large_mixed_pallas``. Everything else is ``torch.fft``, which
+handles every size, so the JAX planner's native-FFT probe and four-step
+fallback have no counterpart here.
 """
 
 from __future__ import annotations
 
 import torch
 
-from radiocore_tpu_torch.kernels import fft_rows
+from radiocore_tpu_torch.kernels import fft_mixed, fft_rows
 
 KERNEL_MIN = 1 << 24
+MIXED_MIN = 1 << 23
 
 
-def _use_kernel(x: torch.Tensor) -> bool:
+def _route(x: torch.Tensor, sign: float):
+    """The kernel's result for ``x``, or None where torch.fft serves."""
     n = int(x.shape[-1])
-    return x.is_cuda and (n & (n - 1)) == 0 and n >= KERNEL_MIN
+    if not x.is_cuda:
+        return None
+    if (n & (n - 1)) == 0:
+        if n >= KERNEL_MIN:
+            return fft_rows.fft_large_pow2(x.contiguous(), sign)
+    elif n >= MIXED_MIN and fft_mixed.mixed_split(n) is not None:
+        return fft_mixed.fft_large_mixed(x.contiguous(), sign)
+    return None
 
 
 def fft(x: torch.Tensor) -> torch.Tensor:
     """Forward FFT along the last axis."""
     if not x.is_complex():
         x = x.to(torch.complex64)
-    if _use_kernel(x):
-        return fft_rows.fft_large_pow2(x.contiguous(), -1.0)
-    return torch.fft.fft(x, dim=-1)
+    y = _route(x, -1.0)
+    return torch.fft.fft(x, dim=-1) if y is None else y
 
 
 def ifft(x: torch.Tensor) -> torch.Tensor:
     """Inverse FFT along the last axis (normalized)."""
-    if _use_kernel(x):
-        return fft_rows.fft_large_pow2(x.contiguous(), +1.0) / x.shape[-1]
-    return torch.fft.ifft(x, dim=-1)
+    y = _route(x, +1.0)
+    return torch.fft.ifft(x, dim=-1) if y is None else y / x.shape[-1]
 
 
 def rfft(x: torch.Tensor) -> torch.Tensor:

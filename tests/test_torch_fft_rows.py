@@ -23,16 +23,21 @@ def _rel(got, want):
     return np.max(np.abs(got - want)) / np.max(np.abs(want))
 
 
-def emulate_passes(passes, x, sign, out_size, modes=None, load_fn=None):
+def emulate_passes(passes, x, sign, out_size, modes=None, load_fn=None,
+                   bufs=None):
     """numpy model of csrc/fft_common.cuh's pass kernel: each sub-FFT
     (b0, b1, s) reads element j at b0*ib0 + b1*ib1 + s*is_ + j*ij, takes
     an L-point DFT, applies the twiddle or the (-1)^off flip, and writes
-    element k at b0*ob0 + b1*ob1 + s*os + k*ok. ``modes[i]`` is the
-    (load, store) mode of pass i; ``load_fn(src, off)`` the extract load.
+    element k at b0*ob0 + b1*ob1 + s*os + k*ok (only where s*os + k*ok <
+    keep, for a pass with ``keep``). ``modes[i]`` is the (load, store)
+    mode of pass i; ``load_fn(src, off)`` the extract load. ``bufs``
+    (name -> array, names may alias one array) replaces the default
+    x / y / s buffers; ``out_size`` is the element count a pass writes.
     """
-    bufs = {"x": np.asarray(x, np.complex128).ravel(),
-            "y": np.zeros(out_size, np.complex128),
-            "s": np.zeros(out_size, np.complex128)}
+    if bufs is None:
+        bufs = {"x": np.asarray(x, np.complex128).ravel(),
+                "y": np.zeros(out_size, np.complex128),
+                "s": np.zeros(out_size, np.complex128)}
     for i, p in enumerate(passes):
         load, store = modes[i] if modes else (0, 0)
         assert p.src != p.dst
@@ -48,15 +53,17 @@ def emulate_passes(passes, x, sign, out_size, modes=None, load_fn=None):
         k = j
         if store == 0 and p.tw_n:
             v = v * np.exp(sign * 2j * np.pi * ((s * k) % p.tw_n) / p.tw_n)
-        out = b0 * p.ob0 + b1 * p.ob1 + s * p.os + k * p.ok
-        out = np.broadcast_to(out, v.shape)
+        rel = np.broadcast_to(s * p.os + k * p.ok, v.shape)
+        out = np.broadcast_to(b0 * p.ob0 + b1 * p.ob1, v.shape) + rel
         if store == 1:
             v = np.where(out & 1, -v, v)
+        if p.keep:
+            out, v = out[rel < p.keep], v[rel < p.keep]
         # Each pass writes every element of its output exactly once.
         assert np.unique(out).size == out.size == out_size
         assert out.max() < out_size
         bufs[p.dst][out] = v
-    return bufs["y"]
+    return bufs.get("y")
 
 
 def _check_plan_invariants(passes, fr):

@@ -18,7 +18,9 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "radiocore_tpu_torch.parallel.pipeline" in mods
+    assert {"radiocore_tpu_torch.parallel.pipeline",
+            "radiocore_tpu_torch.kernels.fft_mixed",
+            "radiocore_tpu_torch.kernels.extract_demod"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -39,3 +41,42 @@ def test_platform_summary_without_cuda():
     if not summary["has_cuda"]:
         assert summary["platform"] == "cpu"
         assert platform.default_device() == torch.device("cpu")
+
+
+def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
+    """On CPU tensors every kernel wrapper and every pipeline mode runs
+    its plain version: neither building nor loading the library is
+    attempted."""
+    import numpy as np
+    import torch
+    from radiocore_tpu_torch.kernels import (build, extract, extract_demod,
+                                             fft_mixed, fft_rows, fir)
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(build, "build", refuse)
+    monkeypatch.setattr(build, "library", refuse)
+    torch.set_num_threads(2)
+    rng = np.random.default_rng(0)
+    spec = torch.from_numpy((rng.standard_normal(1 << 16) + 1j
+                             * rng.standard_normal(1 << 16)).astype(
+                                 np.complex64))
+    fft_rows.fft_pow2(spec[:4096])
+    fft_rows.rfft_pow2(spec.real[:4096].contiguous())
+    fft_mixed.fft_large_mixed(spec[:3 << 12])
+    extract.extract_rows(spec, 0, 4, 1 << 14, 1.0 / (1 << 16))
+    extract_demod.extract_demod_rows(spec, 0, 4, 1 << 14)
+    extract_demod.extract_demod_spec_rows(spec, 0, 4, 1 << 14, keep_bins=99)
+    fir.fir_causal_rows(spec.real[:1024].reshape(2, 512), np.ones(5))
+    c, sc = 4, 65_536
+    offs = [int(-(c * sc // 2 - sc // 2) + i * sc) for i in range(c)]
+    band = torch.from_numpy((rng.standard_normal(c * sc) + 1j
+                             * rng.standard_normal(c * sc)).astype(
+                                 np.complex64))
+    for xd in ("off", "fused", "spec"):
+        step, state = make_multi_station_step(c * sc, offs, sc, 16_384,
+                                              extract_demod=xd, device="cpu")
+        audio, _ = step(band, state)
+        assert tuple(audio.shape) == (c, 16_384, 2)

@@ -15,8 +15,9 @@ torch.set_num_threads(2)
 
 # (stations, station_chunk, audio_chunk). 4 × 65 536 takes the legacy
 # tail (its 38 kHz slice runs past Nyquist); 2 × 262 144 takes the
-# envelope tail, as the 64 × 262 144 main plan does.
-PLANS = [(4, 65_536, 16_384), (2, 262_144, 49_152)]
+# envelope tail, as the 64 × 262 144 main plan does; 3 × 65 536 is a
+# band that is not a power of two, as the 96-station band is.
+PLANS = [(4, 65_536, 16_384), (2, 262_144, 49_152), (3, 65_536, 16_384)]
 
 
 def _offsets(c, sc):
@@ -82,6 +83,74 @@ def test_fast_step_matches_jax(c, sc, ac):
         for key, ref in state_j.items():
             np.testing.assert_allclose(got_state[key], np.asarray(ref),
                                        atol=ATOL)
+
+
+@pytest.mark.parametrize("c,sc,ac", PLANS[:2])
+@pytest.mark.parametrize("xd", ["fused", "spec"])
+def test_extract_demod_step_matches_jax(xd, c, sc, ac, monkeypatch):
+    """``extract_demod=`` against the JAX step with
+    RADIOCORE_TPU_EXTRACT_DEMOD set (its Pallas kernels in interpret
+    mode), over three chained chunks from a non-trivial state."""
+    from radiocore_tpu.parallel.pipeline import (
+        make_multi_station_step as jax_step)
+    from radiocore_tpu_torch.parallel.pipeline import (
+        make_multi_station_step as torch_step)
+    from radiocore_tpu_torch.runtime.checkpoint import (state_from_numpy,
+                                                        state_to_numpy)
+
+    monkeypatch.setenv("RADIOCORE_TPU_EXTRACT_DEMOD", xd)
+    n = c * sc
+    offs = _offsets(c, sc)
+    step_j, state_j = jax_step(n, offs, sc, ac, mode="fast")
+    step_t, _ = torch_step(n, offs, sc, ac, mode="fast", extract_demod=xd,
+                           device="cpu")
+    assert set(step_t.stages) == {"band_fft", "extract_demod", "tail"}
+
+    rng = np.random.default_rng(6)
+    hist = {k: (0.3 * rng.standard_normal(np.shape(v))).astype(np.float32)
+            for k, v in state_j.items()}
+    state_j = {k: jnp.asarray(v) for k, v in hist.items()}
+    state_t = state_from_numpy(hist, "cpu")
+
+    for _ in range(3):
+        band = _fm_band(rng, c, sc)
+        want, state_j = step_j(jnp.asarray(band), state_j)
+        got, state_t = step_t(torch.from_numpy(band), state_t)
+        assert tuple(got.shape) == (c, ac, 2)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+        got_state = state_to_numpy(state_t)
+        for key, ref in state_j.items():
+            np.testing.assert_allclose(got_state[key], np.asarray(ref),
+                                       atol=ATOL)
+
+
+@pytest.mark.parametrize("xd", ["fused", "spec"])
+def test_extract_demod_stages_compose_to_step(xd):
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    c, sc, ac = PLANS[0]
+    step, state = make_multi_station_step(c * sc, _offsets(c, sc), sc, ac,
+                                          extract_demod=xd, device="cpu")
+    band = torch.from_numpy(_fm_band(np.random.default_rng(1), c, sc))
+    want, _ = step(band, state)
+    st = step.stages
+    got, _ = st["tail"](st["extract_demod"](st["band_fft"](band)), state)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("xd,c,sc,offs", [
+    ("spec", 4, 8192, None),             # m < 2^14: fails the A == C rule
+    ("fused", 4, 65_536, [0, 70_000, -70_000, 140_000]),  # not uniform
+    ("fused", 4, 65_536 + 2, None),      # m not a power of two
+    ("bogus", 4, 65_536, None),
+])
+def test_extract_demod_unsupported_plan_raises(xd, c, sc, offs):
+    """A plan the fused kernels do not take raises, naming it, where the
+    JAX package would fall back to the default path in silence."""
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    offs = _offsets(c, sc) if offs is None else offs
+    with pytest.raises(ValueError, match="extract_demod"):
+        make_multi_station_step(c * sc, offs, sc, sc // 4, extract_demod=xd,
+                                device="cpu")
 
 
 def test_other_modes_not_ported():
