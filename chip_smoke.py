@@ -6,8 +6,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. builds the hand-written kernels from ``radiocore_tpu_torch/csrc`` with
    ``nvcc`` for ``sm_90a``;
-2. runs K-FFT, K-EXTRACT and K-FIR at the main path's shapes against
-   their plain PyTorch versions on the card, and times both;
+2. runs K-FFT (rows, band, rfft, and the ``ifft_pow2`` and ``irfft_pow2``
+   wrappers), K-EXTRACT and K-FIR at the main path's shapes against their
+   plain PyTorch versions on the card, and times both;
 3. drives the main path — ``make_multi_station_step(mode="fast")`` for
    64 stations × 262 144 S/s (a 2^24-sample band, 49 152 audio samples
    per station per chunk), the plan of ``bench.py`` — over 5 chained
@@ -16,9 +17,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    with the same port run on the CPU;
 4. decodes one real FM stereo station (440 Hz left, 1 kHz right) placed
    in a 2^24 band and checks both tones' SNR;
-5. runs K-MIXED (the 24M = 96 · 2^18 band FFT), K-EXTRACT on that band,
-   K-XDEMOD and K-XDEMOD-SPEC against their plain versions at the
-   96-station shapes;
+5. runs K-MIXED (the 24M = 96 · 2^18 band FFT, with its column pass and
+   its row passes also timed apart), K-EXTRACT on that band, K-XDEMOD and
+   K-XDEMOD-SPEC against their plain versions at the 96-station shapes;
 6. drives ``make_multi_station_step(extract_demod="spec")`` for 96
    stations × 262 144 S/s (band 24M) over 5 chained chunks — launch
    counters, step and stage times, chunk 1 against the CPU, one real
@@ -68,6 +69,12 @@ SNR_MIN_DB = 20.0     # per stereo tone, as the repository's verify drive
 KERNELS = {
     "K-FFT": ("radiocore_tpu_torch/csrc/fft_rows.cu",
               "radiocore_tpu/kernels/fft_pallas.py:258"),
+    # K-FFT's wrappers off the main path, held at row shapes; their
+    # launches are K-FFT's on the main path.
+    "K-FFT ifft_pow2": ("radiocore_tpu_torch/csrc/fft_rows.cu",
+                        "radiocore_tpu/kernels/fft_pallas.py:359"),
+    "K-FFT irfft_pow2": ("radiocore_tpu_torch/csrc/fft_rows.cu",
+                         "radiocore_tpu/kernels/fft_pallas.py:393"),
     "K-EXTRACT": ("radiocore_tpu_torch/csrc/extract.cu",
                   "radiocore_tpu/kernels/extract_pallas.py:108"),
     "K-FIR": ("radiocore_tpu_torch/csrc/fir.cu",
@@ -213,7 +220,31 @@ def check_kernels(device, gen) -> dict:
     report("K-FFT rfft 64x2^18 real rel_l2", err, REL_L2_MAX,
            time_ms(lambda: fft_rows.rfft_pow2(real)),
            time_ms(lambda: fft_rows.rfft_pow2_plain(real)))
-    del real, got
+    del got
+
+    # The wrappers off the main path, at the same row shapes.
+    rows = crandn_(N_STATIONS, STATION)
+    ref = torch.fft.ifft(rows.to(torch.complex128))
+    got = fft_rows.ifft_pow2(rows)
+    err = rel_l2(got, ref)
+    ms = time_ms(lambda: fft_rows.ifft_pow2(rows))
+    plain = time_ms(lambda: torch.fft.ifft(rows))
+    report("K-FFT ifft_pow2 64x2^18 rel_l2", err, REL_L2_MAX, ms, plain)
+    out["K-FFT ifft_pow2"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
+                                  plain_ms=plain)
+    spec = torch.fft.rfft(real)
+    ref = torch.fft.irfft(spec.to(torch.complex128), n=STATION)
+    got = fft_rows.irfft_pow2(spec, STATION)
+    if tuple(got.shape) != (N_STATIONS, STATION):
+        raise AssertionError(f"irfft_pow2 shape {tuple(got.shape)}")
+    err = rel_l2(got, ref)
+    ms = time_ms(lambda: fft_rows.irfft_pow2(spec, STATION))
+    plain = time_ms(lambda: torch.fft.irfft(spec, n=STATION))
+    report("K-FFT irfft_pow2 64x2^18 real out rel_l2", err, REL_L2_MAX, ms,
+           plain)
+    out["K-FFT irfft_pow2"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
+                                   plain_ms=plain)
+    del rows, real, spec, got, ref
 
     c, m, n = N_STATIONS, STATION, N_BAND
     s_norm = 1.0 / n
@@ -276,6 +307,14 @@ def check_band_kernels(device, gen) -> dict:
                                   plain_ms=plain)
         del got, ref
     del band64
+    # The two launch groups of K-MIXED apart (CUDA events around each).
+    a, b = fft_mixed.mixed_split(n)
+    bufs = fft_mixed.mixed_buffers(torch.empty_like(band), a, b)
+    col = time_ms(lambda: fft_mixed.launch_column(band, bufs["x"], -1.0, a, b))
+    rows = time_ms(lambda: fft_mixed.launch_rows(bufs, -1.0, a, b))
+    print(f"[kernel] K-MIXED split {a}x{b}: column pass {col:.3f} ms, "
+          f"row passes {rows:.3f} ms")
+    del bufs
 
     s_norm = 1.0 / n
     spec64 = band.to(c128)
@@ -529,7 +568,7 @@ def main() -> int:
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **kstats[name]}
+         "launches": launches[name.split()[0]], **kstats[name]}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,8 +33,11 @@
 // station point, pass 1 reads 8 B and writes 8 B, pass 2 reads 8 B (plus
 // the halo) and writes 4 B (quad) or 8 B (SPEC), pass 3 reads 8 B and
 // writes 8*keep/m B: at 96 x 2^18 (keep = 63 601 for SPEC) about 0.71 GB
-// for the quad and 1.06 GB for SPEC. The shared memory of the halo'd SPEC
-// block (about 200 KB at n2 = 512) allows one block per SM.
+// for the quad and 1.06 GB for SPEC. The transforms are fft_common.cuh's
+// fft_row (16 points per thread, Stockham stages in registers, the
+// global twiddle tables); a block of P + 1 rows is (P + 1)*n2/16 threads,
+// so the host plan takes P = 16 at n2 = 512 (about 106 KB of shared
+// memory for SPEC, two blocks per SM).
 #include "fft_common.cuh"
 
 // In rc, not an unnamed namespace: nvcc's host stubs cannot name a kernel
@@ -48,6 +51,7 @@ struct Demod {
   long long ib1, is;        // input: station stride, row stride (unit j)
   long long ob1, os, ok;    // output: station stride; (s, k) at s*os + k*ok
   long long tw_n;           // SPEC: m, the forward twiddle's period
+  int lgtw;                 // log2(tw_n)
   float gain;
 };
 
@@ -56,30 +60,31 @@ __global__ void __launch_bounds__(1024)
     demod_pass_kernel(const float2* __restrict__ in, void* __restrict__ out,
                       Demod d) {
   extern __shared__ float2 smem[];
-  const int L = d.L, lg = d.lg, P = d.P;
-  const int pitch = L + 1;
-  float2* twb = smem;                            // backward table, L/2
-  float2* twf = smem + (L >> 1);                 // forward table, L/2
-  float2* buf = smem + L;                        // halo row, then P rows
+  const int lg = d.lg, P = d.P;
+  const int T = 1 << (lg - 4);
+  const int pitch = row_pitch(d.L);
+  float2* buf = smem;                            // halo row, then P rows
   float* qs = (float*)(buf + (P + 1) * pitch);   // SPEC: P*L quad values
+  const int r = threadIdx.x >> (lg - 4);         // buffer row 0..P
+  const int t = threadIdx.x & (T - 1);
+  float2* row = buf + r * pitch;
 
   const long long nsb = d.S / P;
   const long long s0 = (blockIdx.x % nsb) * P;
   const long long b1 = blockIdx.x / nsb;
   const float2* src = in + b1 * d.ib1;
 
-  fill_table(twb, L, 1.0f);
-  if (SPEC) fill_table(twf, L, -1.0f);
-
-  const int total = (P + 1) << lg;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int j = idx & (L - 1);
-    const int r = idx >> lg;
-    const long long s = (r == 0) ? (s0 + d.S - 1) % d.S : s0 + r - 1;
-    buf[r * pitch + bitrev(j, lg)] = src[s * d.is + j];
-  }
+  // Buffer row r holds sub-FFT row (s0 - 1) mod S (r = 0, the halo) or
+  // s0 + r - 1; rows are unit stride, so each thread loads its points.
+  const long long sr = (r == 0) ? (s0 + d.S - 1) % d.S : s0 + r - 1;
+  float2 v[kVals];
+#pragma unroll
+  for (int m = 0; m < kVals; ++m) v[m] = src[sr * d.is + t + m * T];
+  fft_row(v, row, t, lg, 1.0f);
   __syncthreads();
-  fft_smem(buf, twb, L, lg, P + 1, pitch);
+#pragma unroll
+  for (int m = 0; m < kVals; ++m) row[pad(t + m * T)] = v[m];
+  __syncthreads();
 
   // Row s = s0 + p is buf row p + 1; its neighbour row is buf row p (the
   // halo for p = 0), except for s = 0, whose neighbour is the halo (row
@@ -92,14 +97,14 @@ __global__ void __launch_bounds__(1024)
     const long long s = s0 + p;
     float q = 0.f;
     if (s != 0 || k != 0) {
-      const float2 cur = buf[(p + 1) * pitch + k];
-      const float2 prv = (s != 0) ? buf[p * pitch + k] : buf[k - 1];
+      const float2 cur = buf[(p + 1) * pitch + pad(k)];
+      const float2 prv = (s != 0) ? buf[p * pitch + pad(k)] : buf[pad(k - 1)];
       const float pr = -(cur.x * prv.x + cur.y * prv.y);
       const float pi = -(cur.y * prv.x - cur.x * prv.y);
       q = d.gain * atan2f(pi, pr);
     }
     if (SPEC) {
-      qs[p * L + bitrev(k, lg)] = q;
+      qs[p * d.L + k] = q;
     } else {
       qout[s * d.os + (long long)k * d.ok] = q;
     }
@@ -108,24 +113,25 @@ __global__ void __launch_bounds__(1024)
   __syncthreads();
 
   // Forward n2-point DFT of each quad row (real input), then the twiddle.
-  for (int idx = threadIdx.x; idx < npts; idx += blockDim.x) {
-    const int p = idx >> lg;
-    const int j = idx & (L - 1);
-    buf[p * pitch + j] = make_float2(qs[idx], 0.f);
+  // Buffer row P's threads transform zeros to keep the barriers uniform.
+#pragma unroll
+  for (int m = 0; m < kVals; ++m) {
+    v[m] = make_float2(r < P ? qs[r * d.L + t + m * T] : 0.f, 0.f);
   }
+  fft_row(v, row, t, lg, -1.0f);
   __syncthreads();
-  fft_smem(buf, twf, L, lg, P, pitch);
+#pragma unroll
+  for (int m = 0; m < kVals; ++m) row[pad(t + m * T)] = v[m];
+  __syncthreads();
 
   float2* sout = (float2*)out + b1 * d.ob1;
   for (int idx = threadIdx.x; idx < npts; idx += blockDim.x) {
     const int p = idx & (P - 1);
     const int k = idx >> d.lgP;
     const long long s = s0 + p;
-    const long long r = (s * k) & (d.tw_n - 1);
-    float sn, cs;
-    sincospif(2.0f * (float)r / (float)d.tw_n, &sn, &cs);
     sout[s * d.os + (long long)k * d.ok] =
-        cmul(buf[p * pitch + k], make_float2(cs, -sn));
+        cmul(buf[p * pitch + pad(k)],
+             tw_four((s * k) & (d.tw_n - 1), d.lgtw, -1.0f));
   }
 }
 
@@ -150,31 +156,33 @@ extern "C" int rc_demod_pass(const void* in, void* out, int spec, int L,
   d.os = os;
   d.ok = ok;
   d.tw_n = tw_n;
+  d.lgtw = spec ? rc::log2_exact(tw_n) : 0;
   d.gain = gain;
-  if (d.lg < 1 || L > rc::kMaxSub || d.lgP < 0 ||
-      (long long)P * L > rc::kBlockPoints || S < P || S % P != 0 || B1 < 1 ||
-      (spec && (tw_n < 2 || rc::log2_exact(tw_n) < 0))) {
+  if (L < rc::kMinSub || L > rc::kMaxSub || d.lg < 0 || d.lgP < 0 ||
+      (long long)(P + 1) * L > rc::kBlockPoints || S < P || S % P != 0 ||
+      B1 < 1 || (spec && (tw_n < 2 || d.lgtw < 0))) {
     return (int)cudaErrorInvalidValue;
   }
   const long long blocks = B1 * (S / P);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = sizeof(float2) * ((size_t)L + (size_t)(P + 1) * (L + 1)) +
+  int err = rc::ensure_tables();
+  if (err) return err;
+  const size_t smem = sizeof(float2) * (size_t)(P + 1) * rc::row_pitch(L) +
                       (spec ? sizeof(float) * (size_t)P * L : 0);
-  const int threads = std::min(1024, std::max(32, P * L / 4));
+  const int threads = (P + 1) * L / rc::kVals;
   const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
   if (spec) {
-    err = cudaFuncSetAttribute(rc::demod_pass_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    err = (int)cudaFuncSetAttribute(rc::demod_pass_kernel<true>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem);
+    if (err) return err;
     rc::demod_pass_kernel<true><<<(unsigned)blocks, threads, smem, st>>>(
         (const float2*)in, out, d);
   } else {
-    err = cudaFuncSetAttribute(rc::demod_pass_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    err = (int)cudaFuncSetAttribute(rc::demod_pass_kernel<false>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem);
+    if (err) return err;
     rc::demod_pass_kernel<false><<<(unsigned)blocks, threads, smem, st>>>(
         (const float2*)in, out, d);
   }

@@ -125,7 +125,9 @@ _SIGNATURES = {
     "rc_extract_pass": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
                         _L, _L, _L, _L, _L, _I, _L, _L, _L, _F, _P],
     "rc_fir": [_P, _L, _P, _L, _P, _P, _L, _L, _I, _P],
-    "rc_mixed_column": [_P, _P, _I, _L, _I, _P],
+    "rc_rfft_untangle": [_P, _P, _L, _I, _P],
+    "rc_irfft_tangle": [_P, _P, _L, _I, _P],
+    "rc_mixed_column": [_P, _P, _I, _L, _I, _P, _P],
     "rc_demod_pass": [_P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
                       _F, _P],
     "rc_keep_pass": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,

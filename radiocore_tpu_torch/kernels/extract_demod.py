@@ -88,7 +88,12 @@ def plan(m: int, c: int, keep: Optional[int] = None) -> DemodPlan:
     # Row s = k1 (n2 points, unit stride) → x̃[t] at t = s + n1·k. SPEC:
     # the forward split j = s + n1·k has the quad rows as its first
     # pass's inputs; output (k1', s) at k1'·n1 + s, the same strides.
-    demod = Pass(n2, group(n2, n1), n1, 1, c, 0, m, n2, 1, 0, m, 1, n1,
+    # The demod block also holds a halo row: (P + 1)·n2 points at most
+    # the kernel's block.
+    p_demod = group(n2, n1)
+    while (p_demod + 1) * n2 > fft_rows.KERNEL_BLOCK_POINTS:
+        p_demod //= 2
+    demod = Pass(n2, p_demod, n1, 1, c, 0, m, n2, 1, 0, m, 1, n1,
                  m if keep else 0, "s", "t" if keep else "y")
     if not keep:
         return DemodPlan(first, demod, None)

@@ -8,7 +8,10 @@ Counterpart of ``fft_large_mixed_pallas`` / ``mixed_split`` in
 a-point DFT over j1 for each j2 with the twiddle ``W_n^{k1·j2}`` fused
 into its store, then K-FFT's passes (:func:`row_passes`) transform the a
 rows of b points, the last one storing element k2 of row k1 straight at
-``k1 + a·k2``, so no transpose pass exists.
+``k1 + a·k2``, so no transpose pass exists. The column pass factors
+``a = 2^p·q`` (q odd) into a Stockham chain of a q-point stage and
+power-of-two stages inside one tile of columns, and reads its twiddles
+from :func:`mixed_table`.
 
 A CUDA tensor launches the kernels (or raises); a CPU tensor runs
 :func:`fft_large_mixed_plain` (``torch.fft``).
@@ -20,6 +23,7 @@ import dataclasses
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from radiocore_tpu_torch.kernels import fft_rows
@@ -76,6 +80,20 @@ def row_passes(a: int, b: int) -> Tuple[Pass, ...]:
     return tuple(passes)
 
 
+@functools.lru_cache(maxsize=16)
+def mixed_table(a: int, b: int, sign: float, device: torch.device
+                ) -> torch.Tensor:
+    """The column pass's twiddles in complex64, one tensor: ``W_a^e =
+    exp(sign·2πi·e/a)`` for e < a, then :func:`fft_rows.two_level_table`
+    of n = a·b (``lo``, 2^12 entries, then ``hi``), so that
+    ``W_n^r = hi[r >> 12]·lo[r & 4095]`` for the outer twiddle, r < n."""
+    n = a * b
+    wa = np.exp(sign * 2j * np.pi * np.arange(a, dtype=np.float64) / a)
+    hi, lo = fft_rows.two_level_table(n, sign)
+    table = np.concatenate([wa.astype(np.complex64), lo, hi])
+    return torch.from_numpy(table).to(device)
+
+
 def column_buffer(passes: Tuple[Pass, ...]) -> str:
     """Where the column pass writes: the output ``y`` when the rows'
     first pass reads it and does not write it (two-pass rows), else a
@@ -83,39 +101,54 @@ def column_buffer(passes: Tuple[Pass, ...]) -> str:
     return "y" if len(passes) == 2 else "c"
 
 
+def launch_column(x: torch.Tensor, out: torch.Tensor, sign: float, a: int,
+                  b: int) -> None:
+    """The column pass of one transform: ``x`` (a·b) → ``out`` (a·b), both
+    contiguous complex64 on one CUDA device."""
+    from radiocore_tpu_torch.kernels import build
+    sgn = -1 if sign < 0 else 1
+    table = mixed_table(a, b, float(sgn), x.device)
+    err = build.library().rc_mixed_column(
+        x.data_ptr(), out.data_ptr(), a, b, sgn, table.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"rc_mixed_column(a={a}, b={b})")
+    launches.count += 1
+
+
+def launch_rows(bufs: dict, sign: float, a: int, b: int) -> None:
+    """K-FFT's row passes of one transform over the named buffers
+    (``x`` the column pass's output, ``y`` the result, scratch)."""
+    fft_rows.launch_passes(row_passes(a, b), bufs, sign, launches,
+                           f"mixed n={a * b}")
+
+
+def mixed_buffers(y: torch.Tensor, a: int, b: int) -> dict:
+    """The buffers of one transform writing ``y``: the column buffer
+    (:func:`column_buffer`), aliased as the rows' ``x``, and scratch."""
+    passes = row_passes(a, b)
+    col = column_buffer(passes)
+    bufs = {"y": y}
+    for name in {col, *(q for p in passes for q in (p.src, p.dst))}:
+        if name not in ("x", "y"):
+            bufs[name] = torch.empty(a * b, dtype=torch.complex64,
+                                     device=y.device)
+    bufs["x"] = bufs[col]
+    return bufs
+
+
 def _mixed_kernel(x: torch.Tensor, sign: float, a: int, b: int
                   ) -> torch.Tensor:
-    from radiocore_tpu_torch.kernels import build
     if x.dtype != torch.complex64:
         raise TypeError(f"fft_large_mixed: kernel takes complex64, "
                         f"got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("fft_large_mixed: kernel takes a contiguous tensor")
     n = a * b
-    passes = row_passes(a, b)
-    col = column_buffer(passes)
-    lib = build.library()
     y = torch.empty_like(x)
-    scratch = {name: torch.empty(n, dtype=torch.complex64, device=x.device)
-               for name in {col, *(q for p in passes for q in (p.src, p.dst))}
-               if name not in ("x", "y")}
-    stream = torch.cuda.current_stream().cuda_stream
-    sgn = -1 if sign < 0 else 1
     for xi, yi in zip(x.reshape(-1, n), y.reshape(-1, n)):
-        bufs = {"y": yi, **scratch}
-        bufs["x"] = bufs[col]
-        err = lib.rc_mixed_column(xi.data_ptr(), bufs[col].data_ptr(), a, b,
-                                  sgn, stream)
-        build.check(err, f"rc_mixed_column(a={a}, b={b})")
-        launches.count += 1
-        for p in passes:
-            err = lib.rc_fft_pass(bufs[p.src].data_ptr(),
-                                  bufs[p.dst].data_ptr(), p.L, p.P, p.S,
-                                  p.B0, p.B1, p.ib0, p.ib1, p.is_, p.ij,
-                                  p.ob0, p.ob1, p.os, p.ok, p.tw_n, sgn,
-                                  stream)
-            build.check(err, f"rc_fft_pass(L={p.L}, mixed n={n})")
-            launches.count += 1
+        bufs = mixed_buffers(yi, a, b)
+        launch_column(xi, bufs["x"], sign, a, b)
+        launch_rows(bufs, sign, a, b)
     return y
 
 

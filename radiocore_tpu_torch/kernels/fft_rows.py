@@ -5,7 +5,8 @@ Counterpart of ``radiocore_tpu/kernels/fft_pallas.py``. The kernel
 sub-FFTs of at most :data:`SUB_MAX` points per pass; :func:`plan` chains
 passes into the four-step form (two passes up to ``SUB_MAX**2`` points,
 three above), with the twiddle fused into the first pass's store and the
-last pass storing in natural order.
+last pass storing in natural order. :func:`rfft_pow2` and
+:func:`irfft_pow2` add one elementwise kernel each (untangle, tangle).
 
 Every public function takes its tensor's device as the route: a CUDA
 tensor launches the kernel (or raises), a CPU tensor runs the plain
@@ -25,7 +26,13 @@ import torch
 MIN_ROW = 256
 MAX_ROW = 1 << 19
 SUB_MAX = 4096          # longest sub-FFT of one pass (32 KB of complex64)
-BLOCK_POINTS = 16384    # points per block: P sub-FFTs of length L
+# Points per block, P sub-FFTs of length L (the kernel takes up to 16384):
+# 8192 points are 512 threads and 70 KB of shared memory, so two blocks
+# are resident per SM and one block's loads overlap another's butterflies.
+BLOCK_POINTS = 8192
+KERNEL_BLOCK_POINTS = 16384   # csrc/fft_common.cuh kBlockPoints
+MIN_GROUP = 4           # sub-FFTs per block at least: 32-byte strided runs
+TWIDDLE_BITS = 12       # two-level twiddle tables of 2^12 entries
 
 
 class LaunchCounter:
@@ -79,8 +86,10 @@ def _split(n: int) -> Tuple[int, int]:
 
 
 def _group(L: int, S: int) -> int:
-    """Sub-FFTs per block: fill BLOCK_POINTS, at most next_pow2(S)."""
-    p = max(BLOCK_POINTS // L, 1)
+    """Sub-FFTs per block: fill BLOCK_POINTS, but at least MIN_GROUP (a
+    strided side then moves whole 32-byte sectors) within the kernel's
+    block; at most next_pow2(S)."""
+    p = max(BLOCK_POINTS // L, min(MIN_GROUP, KERNEL_BLOCK_POINTS // L), 1)
     return min(p, 1 << max(S - 1, 0).bit_length())
 
 
@@ -118,19 +127,26 @@ def plan(n: int, batch: int) -> Tuple[Pass, ...]:
 
 def _fft_kernel(x: torch.Tensor, sign: float) -> torch.Tensor:
     """Launch the pass plan on a contiguous complex64 CUDA tensor."""
-    from radiocore_tpu_torch.kernels import build
     if x.dtype != torch.complex64:
         raise TypeError(f"fft_rows: kernel takes complex64, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("fft_rows: kernel takes a contiguous tensor")
     n = int(x.shape[-1])
-    batch = x.numel() // n
-    passes = plan(n, batch)
-    lib = build.library()
+    passes = plan(n, x.numel() // n)
     y = torch.empty_like(x)
     bufs = {"x": x, "y": y}
     if any("s" in (p.src, p.dst) for p in passes):
         bufs["s"] = torch.empty_like(x)
+    launch_passes(passes, bufs, sign, launches, f"n={n}")
+    return y
+
+
+def launch_passes(passes: Tuple[Pass, ...], bufs: dict, sign: float,
+                  counter: LaunchCounter, what: str) -> None:
+    """Launch ``rc_fft_pass`` for each pass over the named CUDA buffers
+    on the current stream, counting each launch on ``counter``."""
+    from radiocore_tpu_torch.kernels import build
+    lib = build.library()
     stream = torch.cuda.current_stream().cuda_stream
     sgn = -1 if sign < 0 else 1
     for p in passes:
@@ -138,9 +154,8 @@ def _fft_kernel(x: torch.Tensor, sign: float) -> torch.Tensor:
                               p.L, p.P, p.S, p.B0, p.B1, p.ib0, p.ib1,
                               p.is_, p.ij, p.ob0, p.ob1, p.os, p.ok, p.tw_n,
                               sgn, stream)
-        build.check(err, f"rc_fft_pass(L={p.L}, n={n})")
-        launches.count += 1
-    return y
+        build.check(err, f"rc_fft_pass(L={p.L}, {what})")
+        counter.count += 1
 
 
 def fft_pow2_plain(x: torch.Tensor, sign: float = -1.0) -> torch.Tensor:
@@ -189,46 +204,21 @@ def ifft_pow2(x: torch.Tensor) -> torch.Tensor:
     return fft_pow2(x, sign=+1.0) / x.shape[-1]
 
 
-@functools.lru_cache(maxsize=32)
-def _untangle_weights(n: int, device: torch.device
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``A = (1 − i·w)/2`` and ``B = (1 + i·w)/2`` with
-    ``w = exp(−2πi·k/n)``, k = 0..n/2 (float64-derived complex64)."""
-    w = np.exp(-2j * np.pi * np.arange(n // 2 + 1, dtype=np.float64) / n)
-    return tuple(torch.from_numpy((0.5 * (1 + s * 1j * w)).astype(
-        np.complex64)).to(device) for s in (-1, 1))
-
-
-@functools.lru_cache(maxsize=32)
-def _half_twiddle(n: int, sign: float, device: torch.device) -> torch.Tensor:
-    """exp(sign·2πi·k/n) for k = 0..n/2 (float64-derived complex64)."""
-    k = np.arange(n // 2 + 1, dtype=np.float64)
-    w = np.exp(sign * 2j * np.pi * k / n).astype(np.complex64)
-    return torch.from_numpy(w).to(device)
-
-
-def rfft_untangle(z: torch.Tensor, n: int) -> torch.Tensor:
-    """rfft bins of a real row of ``n`` points from the length-n/2 FFT
-    ``Z`` of its even/odd-packed samples: ``X[k] = A[k]·Z[k] +
-    B[k]·conj(Z[h−k])`` for k = 0..h, with ``Z[h] = Z[0]``."""
-    zf = torch.cat([z, z[..., :1]], dim=-1)
-    a, b = _untangle_weights(n, z.device)
-    return torch.addcmul(a * zf, b, torch.flip(zf, dims=(-1,)).conj())
-
-
-def irfft_tangle(X: torch.Tensor, n: int) -> torch.Tensor:
-    """The length-n/2 complex row whose unnormalized backward FFT holds
-    the even/odd samples of ``irfft(X, n)·n/2``; the imaginary parts of
-    the DC and Nyquist bins are ignored (np.fft.irfft)."""
-    h = n // 2
-    X = X.to(torch.complex64)
-    edge = torch.zeros(h + 1, dtype=torch.float32, device=X.device)
-    edge[0] = edge[h] = 1.0
-    X = X - 1j * (edge * X.imag)
-    xrev = torch.conj(torch.flip(X, dims=(-1,)))
-    ze = 0.5 * (X + xrev)
-    zo = 0.5 * (X - xrev) * _half_twiddle(n, +1.0, X.device)
-    return (ze + 1j * zo)[..., :h].contiguous()
+def two_level_table(n: int, sign: float, bits: int = TWIDDLE_BITS
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """``(hi, lo)`` in complex64 with ``exp(sign·2πi·r/n) ≈
+    hi[r >> bits] · lo[r & (2^bits − 1)]`` for ``0 ≤ r < n``: ``lo[e] =
+    exp(sign·2πi·e/n)`` for ``e < 2^bits`` and ``hi[e] = exp(sign·2πi·
+    (e·2^bits mod n)/n)`` for ``e < ceil(n / 2^bits)``, each from float64
+    phases reduced on integers and rounded once. K-MIXED's outer twiddle
+    reads it (``fft_mixed.mixed_table``), where n is not a power of two.
+    The pass engine's four-step twiddle (n a power of two) is sincospif
+    of an exact argument instead, which measured faster on the card."""
+    size = 1 << bits
+    lo = np.arange(size, dtype=np.int64) % n
+    hi = (np.arange(-(-n // size), dtype=np.int64) * size) % n
+    return tuple(np.exp(sign * 2j * np.pi * (e.astype(np.float64) / n)
+                        ).astype(np.complex64) for e in (hi, lo))
 
 
 def rfft_pow2_plain(x: torch.Tensor) -> torch.Tensor:
@@ -240,8 +230,10 @@ def rfft_pow2(x: torch.Tensor) -> torch.Tensor:
     """Real-input FFT along the last axis → ``n//2 + 1`` bins.
 
     On CUDA: even/odd samples packed as one length-n/2 complex row (a
-    free view of the float32 data), the kernel, then
-    :func:`rfft_untangle` as elementwise torch.
+    free view of the float32 data), the kernel, then the untangle as one
+    more kernel (``rc_rfft_untangle``): ``X[k] = A[k]·Z[k] +
+    B[k]·conj(Z[h−k])`` for k = 0..h, ``Z[h] = Z[0]``,
+    ``A = (1 − i·w)/2``, ``B = (1 + i·w)/2``, ``w = exp(−2πi·k/n)``.
     """
     n = int(x.shape[-1])
     h = n // 2
@@ -254,14 +246,27 @@ def rfft_pow2(x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"rfft_pow2: kernel takes float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("rfft_pow2: kernel takes a contiguous tensor")
+    from radiocore_tpu_torch.kernels import build
     z = _fft_kernel(torch.view_as_complex(x.view(x.shape[:-1] + (h, 2))),
                     -1.0)
-    return rfft_untangle(z, n)
+    out = torch.empty(x.shape[:-1] + (h + 1,), dtype=torch.complex64,
+                      device=x.device)
+    err = build.library().rc_rfft_untangle(
+        z.data_ptr(), out.data_ptr(), z.numel() // h, h,
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"rc_rfft_untangle(n={n})")
+    launches.count += 1
+    return out
 
 
 def irfft_pow2(X: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of :func:`rfft_pow2` to real length ``n``; the imaginary
-    parts of the DC and Nyquist bins are ignored (np.fft.irfft)."""
+    parts of the DC and Nyquist bins are ignored (np.fft.irfft).
+
+    On CUDA: the tangle as a kernel (``rc_irfft_tangle``), the length-h
+    complex row whose unnormalized backward FFT holds ``irfft(X, n)`` as
+    (even, odd) sample pairs, times 1/h; then the backward h-point kernel
+    and the real view of its output."""
     n = int(n)
     h = n // 2
     _check_row(h)
@@ -272,8 +277,20 @@ def irfft_pow2(X: torch.Tensor, n: int) -> torch.Tensor:
         if X.device.type != "cpu":
             raise ValueError(f"irfft_pow2: no kernel for device {X.device}")
         return torch.fft.irfft(X, n=n, dim=-1)
-    y = _fft_kernel(irfft_tangle(X, n), +1.0)
-    return torch.view_as_real(y).reshape(X.shape[:-1] + (n,)) * (1.0 / h)
+    from radiocore_tpu_torch.kernels import build
+    if X.dtype != torch.complex64:
+        raise TypeError(f"irfft_pow2: kernel takes complex64, got {X.dtype}")
+    if not X.is_contiguous():
+        raise ValueError("irfft_pow2: kernel takes a contiguous tensor")
+    z = torch.empty(X.shape[:-1] + (h,), dtype=torch.complex64,
+                    device=X.device)
+    err = build.library().rc_irfft_tangle(
+        X.data_ptr(), z.data_ptr(), z.numel() // h, h,
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"rc_irfft_tangle(n={n})")
+    launches.count += 1
+    y = _fft_kernel(z, +1.0)
+    return torch.view_as_real(y).reshape(X.shape[:-1] + (n,))
 
 
 def fft_large_pow2(x: torch.Tensor, sign: float = -1.0) -> torch.Tensor:

@@ -208,5 +208,6 @@ def test_main_path_plan():
     from radiocore_tpu_torch.kernels import extract_demod as xd
     pl = xd.plan(1 << 18, 96, 63_601)
     assert [pl.first.L, pl.demod.L, pl.keep.L] == [512, 512, 512]
-    assert pl.demod.P == 32 and pl.demod.S == 512
+    # P + 1 rows (the halo) of 512 points within the kernel's block.
+    assert pl.demod.P == 16 and pl.demod.S == 512
     assert pl.keep.ob1 == 63_601 and pl.keep.keep == 63_601

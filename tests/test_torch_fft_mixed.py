@@ -27,17 +27,69 @@ def _rel(got, want):
     return np.max(np.abs(got - want)) / np.max(np.abs(want))
 
 
+def column_stages(a):
+    """csrc/fft_mixed.cu's stages of the a-point DFT, a = 2^p * q with q
+    odd: (radix, Ns) with the q-point stage first (Ns = 1), then
+    ceil(p/4) power-of-two stages, the larger radices first."""
+    q, p = a, 0
+    while q % 2 == 0:
+        q, p = q // 2, p + 1
+    stages, ns = [], 1
+    if q > 1:
+        stages.append((q, 1))
+        ns = q
+    if p:
+        n_pow2 = (p + 3) // 4
+        for st in range(n_pow2):
+            bits = p // n_pow2 + (1 if st < p % n_pow2 else 0)
+            stages.append((1 << bits, ns))
+            ns <<= bits
+    return stages
+
+
+def column_dft(t, a, sign):
+    """numpy model of the kernel's a-point DFT over axis 0 of the tile
+    ``t`` (a, columns): Stockham stages of :func:`column_stages`; butterfly
+    b of a radix-r stage reads rows b + m*a/r, twiddled by the W_a table
+    entry (m*(b mod Ns)*a/(Ns*r)), takes the r-point DFT (radix 3 in
+    registers, a direct sum over the W_a table for any other odd r,
+    test_torch_fft_rows.dft_registers for powers of two) and writes
+    output m at row (b - b mod Ns)*r + b mod Ns + m*Ns."""
+    from test_torch_fft_rows import dft_registers
+    wa = np.exp(sign * 2j * np.pi * np.arange(a) / a)
+    v = np.asarray(t, np.complex128)
+    for r, ns in column_stages(a):
+        nb = a // r
+        b = np.arange(nb)[:, None]
+        m = np.arange(r)[None, :]
+        bm = b % ns
+        u = np.moveaxis(v[b + m * nb] * wa[m * bm * (a // (ns * r))][..., None],
+                        -1, 0)          # (columns, nb, r)
+        if r & (r - 1) == 0:
+            u = dft_registers(u, sign)
+        else:
+            u = u @ wa[(np.arange(r)[:, None] * np.arange(r)[None, :]) % r
+                       * nb]
+        out = np.empty_like(v)
+        out[(b - bm) * r + bm + m * ns] = np.moveaxis(u, 0, -1)
+        v = out
+    return v
+
+
 def column_model(x, a, b, sign):
     """numpy model of csrc/fft_mixed.cu: T[k1, j2] = W_n^{k1*j2} *
-    sum_j1 x[b*j1 + j2] * wa[(j1*k1) mod a], wa[e] = exp(sign*2πi*e/a),
-    stored at k1*b + j2."""
+    (a-point DFT over j1 of x[b*j1 + j2], :func:`column_dft`), stored at
+    k1*b + j2; the outer twiddle is fft_mixed.mixed_table's two-level
+    table, multiplied in float64 here."""
+    from radiocore_tpu_torch.kernels.fft_rows import two_level_table
     n = a * b
-    wa = np.exp(sign * 2j * np.pi * np.arange(a) / a)
-    j1 = np.arange(a)[:, None]
-    k1 = np.arange(a)[None, :]
-    g = wa[(j1 * k1) % a].T @ np.asarray(x, np.complex128).reshape(a, b)
+    g = column_dft(np.asarray(x, np.complex128).reshape(a, b), a, sign)
     r = np.arange(a)[:, None] * np.arange(b)[None, :]
     assert r.max() < n          # the kernel forms k1*j2 with no reduction
+    hi, lo = two_level_table(n, sign)
+    w = hi[r >> 12].astype(np.complex128) * lo[r & 4095]
+    assert np.abs(w - np.exp(sign * 2j * np.pi * r / n)).max() < 3e-7
+    # float64 twiddles keep the plan models at 1e-12.
     return (g * np.exp(sign * 2j * np.pi * r / n)).ravel()
 
 
@@ -74,9 +126,9 @@ def test_band_split():
     rows = row_passes(96, 1 << 18)
     assert [p.L for p in rows] == [512, 512]
     # The last pass's sub-FFTs are the 96 rows: a block stores runs of P
-    # neighbouring outputs k1 .. k1 + P - 1.
+    # neighbouring outputs k1 .. k1 + P - 1 (P·L = BLOCK_POINTS).
     last = rows[-1]
-    assert (last.S, last.P, last.os) == (96, 32, 1)
+    assert (last.S, last.P, last.os) == (96, 16, 1)
     assert last.ob1 == 96 and last.ok == 96 * 512
 
 
@@ -105,6 +157,39 @@ def test_kernel_plan_emulated(a, b, sign):
     got = emulate_mixed(x, a, b, sign)
     want = np.fft.fft(x) if sign < 0 else np.fft.ifft(x) * n
     assert _rel(got, want) < 1e-12
+
+
+@pytest.mark.parametrize("sign", [-1.0, 1.0])
+@pytest.mark.parametrize("a", [3, 5, 12, 96, 112, 127, 128])
+def test_column_factorization_matches_numpy(a, sign):
+    """The column pass's a = 2^p·q chain (radix q, then radix 2^p with the
+    inner twiddles, in the kernel's order) against np.fft over j1."""
+    stages = column_stages(a)
+    assert np.prod([r for r, _ in stages]) == a and len(stages) <= 4
+    # Each thread holds at most 16 points of a column per stage (8 warps).
+    for r, _ in stages:
+        per = -(-a // 8) if r % 2 and r != 3 else -(-(a // r) // 8) * r
+        assert per <= 16
+    x = _c64((a, 64), seed=a).astype(np.complex128)
+    want = (np.fft.fft(x, axis=0) if sign < 0
+            else np.fft.ifft(x, axis=0) * a)
+    assert _rel(column_dft(x, a, sign), want) < 1e-12
+
+
+def test_mixed_table_layout():
+    from radiocore_tpu_torch.kernels.fft_mixed import mixed_table
+    a, b = 96, 1 << 10
+    for sign in (-1.0, 1.0):
+        t = mixed_table(a, b, sign, torch.device("cpu")).numpy()
+        n = a * b
+        assert t.dtype == np.complex64 and t.shape == (a + 4096 + n // 4096
+                                                       + (n % 4096 > 0),)
+        np.testing.assert_allclose(
+            t[:a], np.exp(sign * 2j * np.pi * np.arange(a) / a), atol=1e-7)
+        r = np.array([0, 1, 4095, 4096, 12_345, n - 1])
+        w = t[a + 4096 + (r >> 12)] * t[a + (r & 4095)]
+        np.testing.assert_allclose(w, np.exp(sign * 2j * np.pi * r / n),
+                                   atol=2.4e-7)
 
 
 def test_three_pass_rows_emulated(monkeypatch):

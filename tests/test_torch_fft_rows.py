@@ -23,11 +23,72 @@ def _rel(got, want):
     return np.max(np.abs(got - want)) / np.max(np.abs(want))
 
 
+def stage_bits(lg):
+    """csrc/fft_common.cuh stage_bits: ceil(lg/4) stages, larger first."""
+    nst = (lg + 3) // 4
+    return [lg // nst + (1 if st < lg % nst else 0) for st in range(nst)]
+
+
+def dft_registers(u, sign):
+    """numpy model of fft_common.cuh dft<R> on the last axis: radix-2
+    decimation in frequency with the W_16 constants of rot16, then the
+    bit-reversed renaming."""
+    u = np.array(u, np.complex128)
+    R = u.shape[-1]
+    h = R // 2
+    while h >= 1:
+        for blk in range(0, R, 2 * h):
+            for i in range(h):
+                a, b = u[..., blk + i].copy(), u[..., blk + i + h].copy()
+                u[..., blk + i] = a + b
+                e = i * (8 // h)
+                u[..., blk + i + h] = (a - b) * np.exp(sign * 2j * np.pi * e
+                                                       / 16)
+        h //= 2
+    bits = R.bit_length() - 1
+    rev = [int(format(k, f"0{bits}b")[::-1], 2) if bits else 0
+           for k in range(R)]
+    return u[..., rev]
+
+
+def stockham(v, sign):
+    """numpy model of fft_common.cuh fft_row on the last axis (L = 2^lg,
+    16 <= L <= 4096): per stage of radix R and span Ns, butterfly b reads
+    positions b + q*L/R, twiddles them by W_{Ns*R}^(q*(b mod Ns)) (the
+    stage table's entry q*Ns + b mod Ns), takes dft<R> and writes output
+    q at (b - b mod Ns)*R + b mod Ns + q*Ns."""
+    v = np.asarray(v, np.complex128)
+    L = v.shape[-1]
+    Ns = 1
+    for bits in stage_bits(L.bit_length() - 1):
+        R = 1 << bits
+        nb = L // R
+        b = np.arange(nb)[:, None]
+        q = np.arange(R)[None, :]
+        bm = b & (Ns - 1)
+        u = v[..., b + q * nb] * np.exp(sign * 2j * np.pi * q * bm / (Ns * R))
+        out = np.empty_like(v)
+        out[..., (b - bm) * R + bm + q * Ns] = dft_registers(u, sign)
+        v = out
+        Ns *= R
+    return v
+
+
+def sub_fft(v, sign):
+    """The L-point DFT of a pass: the kernel's Stockham chain where the
+    kernel takes L (16..4096), else np.fft (plans shrunk by a test)."""
+    L = v.shape[-1]
+    if 16 <= L <= 4096:
+        return stockham(v, sign)
+    return np.fft.fft(v, axis=-1) if sign < 0 else np.fft.ifft(v, axis=-1) * L
+
+
 def emulate_passes(passes, x, sign, out_size, modes=None, load_fn=None,
                    bufs=None):
     """numpy model of csrc/fft_common.cuh's pass kernel: each sub-FFT
     (b0, b1, s) reads element j at b0*ib0 + b1*ib1 + s*is_ + j*ij, takes
-    an L-point DFT, applies the twiddle or the (-1)^off flip, and writes
+    an L-point DFT (the kernel's Stockham stages, :func:`stockham`),
+    applies the twiddle or the (-1)^off flip, and writes
     element k at b0*ob0 + b1*ob1 + s*os + k*ok (only where s*os + k*ok <
     keep, for a pass with ``keep``). ``modes[i]`` is the (load, store)
     mode of pass i; ``load_fn(src, off)`` the extract load. ``bufs``
@@ -45,11 +106,7 @@ def emulate_passes(passes, x, sign, out_size, modes=None, load_fn=None,
                               np.arange(p.S), np.arange(p.L))
         off = b0 * p.ib0 + b1 * p.ib1 + s * p.is_ + j * p.ij
         src = bufs[p.src]
-        v = src[off] if load == 0 else load_fn(src, off)
-        if sign < 0:
-            v = np.fft.fft(v, axis=-1)
-        else:
-            v = np.fft.ifft(v, axis=-1) * p.L
+        v = sub_fft(src[off] if load == 0 else load_fn(src, off), sign)
         k = j
         if store == 0 and p.tw_n:
             v = v * np.exp(sign * 2j * np.pi * ((s * k) % p.tw_n) / p.tw_n)
@@ -69,7 +126,9 @@ def emulate_passes(passes, x, sign, out_size, modes=None, load_fn=None,
 def _check_plan_invariants(passes, fr):
     for p in passes:
         assert 2 <= p.L <= fr.SUB_MAX
-        assert p.P & (p.P - 1) == 0 and p.P * p.L <= fr.BLOCK_POINTS
+        assert p.P & (p.P - 1) == 0
+        assert p.P * p.L <= max(fr.BLOCK_POINTS, fr.MIN_GROUP * p.L)
+        assert p.P * p.L <= fr.KERNEL_BLOCK_POINTS
         assert p.tw_n == 0 or p.tw_n & (p.tw_n - 1) == 0
 
 
@@ -108,11 +167,62 @@ def test_three_pass_plan_emulated(n, monkeypatch):
 
 def test_main_path_plans():
     from radiocore_tpu_torch.kernels.fft_rows import plan
-    assert [p.L for p in plan(1 << 18, 64)] == [512, 512]
+    rows = plan(1 << 18, 64)
+    assert [p.L for p in rows] == [512, 512]
+    assert [p.P for p in rows] == [16, 16]
     assert [p.L for p in plan(1 << 17, 64)] == [512, 256]
     band = plan(1 << 24, 1)
     assert [p.L for p in band] == [4096, 4096]
+    assert [p.P for p in band] == [4, 4]      # MIN_GROUP: 32-byte runs
     assert band[0].tw_n == 1 << 24 and band[1].tw_n == 0
+    # The kernel's shortest sub-FFT is one thread's 16 points, and a
+    # block is P*L/16 threads.
+    for p in rows + band:
+        assert 16 <= p.L and p.P * p.L // 16 <= 1024
+
+
+@pytest.mark.parametrize("sign", [-1.0, 1.0])
+@pytest.mark.parametrize("L", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_stockham_stages_match_numpy(L, sign):
+    """The kernel's in-block FFT (stage radices, Stockham positions, table
+    twiddles, in-register DFTs) against np.fft for every L it takes."""
+    assert sum(stage_bits(L.bit_length() - 1)) == L.bit_length() - 1
+    assert all(2 <= b <= 4 for b in stage_bits(L.bit_length() - 1))
+    x = _c64((3, L), seed=L).astype(np.complex128)
+    want = (np.fft.fft(x, axis=-1) if sign < 0
+            else np.fft.ifft(x, axis=-1) * L)
+    assert _rel(stockham(x, sign), want) < 1e-12
+
+
+@pytest.mark.parametrize("R", [2, 4, 8, 16])
+def test_register_dft_matches_numpy(R):
+    x = _c64((4, R), seed=R).astype(np.complex128)
+    assert _rel(dft_registers(x, -1.0), np.fft.fft(x, axis=-1)) < 1e-13
+    assert _rel(dft_registers(x, 1.0), np.fft.ifft(x, axis=-1) * R) < 1e-13
+
+
+@pytest.mark.parametrize("n,bits", [(1 << 24, 12), (1 << 24, 8),
+                                    (96 << 18, 12), (96 << 18, 16)])
+def test_two_level_twiddle_table(n, bits):
+    """hi[r >> bits]·lo[r & mask], multiplied in float32 as the kernels
+    do, is exp(±2πi·r/n) within 2 ulp of float32 (2·2^-23), for r near 0,
+    near n and at random; n = 2^24 (the main band) and n = 96·2^18
+    (K-MIXED's band, whose outer twiddle reads this table)."""
+    from radiocore_tpu_torch.kernels.fft_rows import two_level_table
+    rng = np.random.default_rng(bits)
+    r = np.concatenate([np.arange(4096), n - 1 - np.arange(4096),
+                        rng.integers(0, n, 100_000)])
+    bound = 2 * np.finfo(np.float32).eps
+    for sign in (-1.0, 1.0):
+        hi, lo = two_level_table(n, sign, bits)
+        assert hi.dtype == lo.dtype == np.complex64
+        assert len(lo) == 1 << bits and len(hi) == -(-n // (1 << bits))
+        h, l = hi[r >> bits], lo[r & ((1 << bits) - 1)]
+        hx, hy, lx, ly = h.real, h.imag, l.real, l.imag
+        got = ((hx * lx - hy * ly).astype(np.float64)
+               + 1j * (hx * ly + hy * lx))
+        want = np.exp(sign * 2j * np.pi * (r / n))
+        assert np.abs(got - want).max() <= bound
 
 
 @pytest.mark.parametrize("sign", [-1.0, 1.0])
@@ -212,25 +322,59 @@ def test_ops_fft_matches_jax(n):
     np.testing.assert_allclose(tfft.irfft(spec, n).numpy(), xr, atol=1e-5)
 
 
+def untangle_model(z):
+    """numpy model of csrc/fft_rows.cu rfft_untangle_kernel: thread k <=
+    h/2 writes X[k] and X[h-k] from Z[k] and Z[h-k] (Z[h] = Z[0]) with
+    w = exp(-2πi·k/n) from sin/cos of πk/h and w[h-k] = -conj(w[k])."""
+    rows, h = z.shape
+    x = np.zeros((rows, h + 1), np.complex128)
+    k = np.arange(h // 2 + 1)
+    zk, zm = z[:, k], z[:, np.where(k == 0, 0, h - k)]
+    sn, cs = np.sin(np.pi * k / h), np.cos(np.pi * k / h)
+    a, b = 0.5 * (1 - sn) - 0.5j * cs, 0.5 * (1 + sn) + 0.5j * cs
+    x[:, k] = a * zk + b * np.conj(zm)
+    a, b = 0.5 * (1 - sn) + 0.5j * cs, 0.5 * (1 + sn) - 0.5j * cs
+    x[:, h - k] = a * zm + b * np.conj(zk)
+    return x
+
+
 def test_rfft_untangle_matches_numpy():
-    """The elementwise half of rfft_pow2's CUDA route, fed the half-length
-    FFT of the even/odd-packed row."""
-    from radiocore_tpu_torch.kernels.fft_rows import rfft_untangle
-    x = np.random.default_rng(31).standard_normal((3, 4096)).astype(
-        np.float32)
-    z = torch.fft.fft(torch.view_as_complex(torch.from_numpy(x).view(
-        3, 2048, 2)))
-    got = rfft_untangle(z, 4096).numpy()
-    assert _rel(got, np.fft.rfft(x.astype(np.float64), axis=-1)) < 1e-5
+    """The elementwise half of rfft_pow2's CUDA route (the untangle
+    kernel, modelled), fed the half-length FFT of the even/odd-packed
+    row."""
+    x = np.random.default_rng(31).standard_normal((3, 4096))
+    z = np.fft.fft(x[:, 0::2] + 1j * x[:, 1::2], axis=-1)
+    assert _rel(untangle_model(z), np.fft.rfft(x, axis=-1)) < 1e-12
+
+
+def tangle_model(x):
+    """numpy model of csrc/fft_rows.cu irfft_tangle_kernel: thread k <=
+    h/2 writes Z[k] and Z[h-k] (times 1/h) from X[k] and X[h-k], the DC
+    and Nyquist imaginary parts dropped, W = exp(+2πi·k/n) from sin/cos
+    of πk/h and W[h-k] = -conj(W[k])."""
+    rows, h = x.shape[0], x.shape[1] - 1
+    z = np.zeros((rows, h), np.complex128)
+    x = np.array(x, np.complex128)
+    x[:, 0], x[:, h] = x[:, 0].real, x[:, h].real
+    k = np.arange(h // 2 + 1)
+    xa, xb = x[:, k], x[:, h - k]
+    w = np.exp(1j * np.pi * k / h)
+    z[:, k] = (0.5 * (xa + np.conj(xb))
+               + 1j * 0.5 * (xa - np.conj(xb)) * w) / h
+    kk = k[1:]
+    xa, xb, w = xa[:, 1:], xb[:, 1:], -np.conj(w[1:])
+    z[:, h - kk] = (0.5 * (xb + np.conj(xa))
+                    + 1j * 0.5 * (xb - np.conj(xa)) * w) / h
+    return z
 
 
 def test_irfft_tangle_matches_numpy():
-    """The elementwise half of irfft_pow2's CUDA route, followed by the
-    unnormalized backward FFT the kernel computes there."""
-    from radiocore_tpu_torch.kernels.fft_rows import irfft_tangle
-    spec = _c64((2, 1025), seed=32)      # DC/Nyquist imag left nonzero
-    z = irfft_tangle(torch.from_numpy(spec), 2048)
-    got = torch.view_as_real(torch.fft.ifft(z, norm="forward")).reshape(
-        2, 2048) / 1024
-    want = np.fft.irfft(spec.astype(np.complex128), 2048, axis=-1)
-    np.testing.assert_allclose(got.numpy(), want, atol=2e-6)
+    """The elementwise half of irfft_pow2's CUDA route (the tangle kernel,
+    modelled), then the unnormalized backward FFT the kernel computes
+    there: irfft as (even, odd) pairs; the DC and Nyquist imaginary parts
+    are left nonzero and must be ignored."""
+    spec = _c64((2, 1025), seed=32).astype(np.complex128)
+    y = np.fft.ifft(tangle_model(spec), axis=-1) * 1024
+    got = np.stack([y.real, y.imag], axis=-1).reshape(2, 2048)
+    want = np.fft.irfft(spec, 2048, axis=-1)
+    assert np.abs(got - want).max() < 1e-12 * np.abs(want).max()
