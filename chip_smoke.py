@@ -8,7 +8,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``nvcc`` for ``sm_90a``;
 2. runs K-FFT (rows, band, rfft, and the ``ifft_pow2`` and ``irfft_pow2``
    wrappers), K-EXTRACT and K-FIR at the main path's shapes against their
-   plain PyTorch versions on the card, and times both;
+   plain PyTorch versions on the card, and times both, beside each
+   kernel's bound (the least time the card could take) and, where one
+   PyTorch call computes the same function, that call's time; K-EXTRACT
+   runs through its station-group schedule and is also timed against the
+   same passes over the whole batch (``[kernel] ... groups``);
 3. drives the main path — ``make_multi_station_step(mode="fast")`` for
    64 stations × 262 144 S/s (a 2^24-sample band, 49 152 audio samples
    per station per chunk), the plan of ``bench.py`` — over 5 chained
@@ -19,13 +23,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    in a 2^24 band and checks both tones' SNR;
 5. runs K-MIXED (the 24M = 96 · 2^18 band FFT, with its column pass and
    its row passes also timed apart), K-EXTRACT on that band, K-XDEMOD and
-   K-XDEMOD-SPEC against their plain versions at the 96-station shapes;
+   K-XDEMOD-SPEC against their plain versions at the 96-station shapes,
+   each also for 90 stations (a count the group size does not divide)
+   from a start bin that makes a run wrap at the band's end inside a
+   group, and grouped against ungrouped;
 6. drives ``make_multi_station_step(extract_demod="spec")`` for 96
    stations × 262 144 S/s (band 24M) over 5 chained chunks — launch
    counters, step and stage times, chunk 1 against the CPU, one real
    stereo station — and the ``"fused"`` and default modes at 96
    stations over 2 chunks each (launch counters, chunk 1 against the
-   CPU).
+   CPU). The main and ``spec`` steps are also traced with
+   ``torch.profiler`` (device time per kernel, busy and idle share).
+
+The build fails the run if ``ptxas`` reports register spills for the
+demod pass of K-XDEMOD(-SPEC).
 
 Every phase raises on failure. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result. The
@@ -56,6 +67,7 @@ CHUNKS = 5
 # 96 · 2^18 = 25 165 824, not a power of two, so the band FFT is K-MIXED.
 N_STATIONS_96 = 96
 N_BAND_96 = N_STATIONS_96 * STATION
+C_ODD = 90            # a station count that no group of 4 or 8 divides
 CHUNKS_MODES = 2      # the fused and default modes at 96 stations
 
 REL_L2_MAX = 1e-5     # K-FFT, K-MIXED, K-EXTRACT against complex128
@@ -65,6 +77,10 @@ XDEMOD_ABS_MAX = 5e-5   # K-XDEMOD against float64
 XSPEC_REL_MAX = 3e-5    # K-XDEMOD-SPEC, max abs / max |ref|
 E2E_ABS_MAX = 1e-4    # card against CPU, audio of chunk 1
 SNR_MIN_DB = 20.0     # per stereo tone, as the repository's verify drive
+
+# Published peaks of one H100 SXM: the yardstick of each kernel's bound.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 KERNELS = {
     "K-FFT": ("radiocore_tpu_torch/csrc/fft_rows.cu",
@@ -121,6 +137,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the HBM rate, or the float32
+    operations at the peak rate outside the tensor cores, whichever is
+    longer."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def fft_flops(n: int, rows: int = 1) -> float:
+    return 5.0 * n * math.log2(n) * rows
+
+
+def time_pair_ms(fn_a, fn_b):
+    """Medians of 20 of two functions timed in turns (a, b, b, a), so
+    that neither has the warmer card."""
+    a1, b1, b2, a2 = (time_ms(f, reps=10) for f in (fn_a, fn_b, fn_b, fn_a))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
 def fm_band(gen, c: int, sc: int, device):
     """Band chunk of ``c`` FM stereo stations (random tones per station,
     the multiplex of ``tests/oracles.make_stereo_multiplex`` and the
@@ -171,13 +209,31 @@ def crandn(gen, device, *shape):
                          torch.randn(shape, generator=gen, device=device))
 
 
-def report(what, err, bound, ms, plain_ms):
-    """Print one kernel check; raise if ``err`` is above ``bound`` (a NaN
-    error fails too)."""
-    print(f"[kernel] {what}: {err:.3e} (bound {bound:.0e}) "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    if not err <= bound:
-        raise AssertionError(f"{what}: error {err} above {bound}")
+def report(what, err, limit, ms, plain_ms, least=None, library_ms=None):
+    """Print one kernel check; raise if ``err`` is above ``limit`` (a NaN
+    error fails too). ``least`` is the kernel's :func:`bound`."""
+    line = (f"[kernel] {what}: {err:.3e} (bound {limit:.0e}) "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if least:
+        line += (f", least {least['bound_ms']:.3f} ms by "
+                 f"{least['bound_by']} ({least['bound_ms'] / ms:.0%})")
+    if library_ms is not None:
+        line += f", library {library_ms:.3f} ms"
+    print(line)
+    if not err <= limit:
+        raise AssertionError(f"{what}: error {err} above {limit}")
+
+
+def report_groups(what, device, c, m, buffers, kernel):
+    """Time ``kernel(group, lanes)`` at the grouped schedule that the
+    device's L2 gives (``extract.grouped_schedule``) against the same
+    passes over the whole batch on one lane."""
+    from radiocore_tpu_torch.kernels import extract
+    g, lanes = extract.grouped_schedule(device, m, buffers, c)
+    grouped, whole = time_pair_ms(lambda: kernel(g, lanes),
+                                  lambda: kernel(c, 1))
+    print(f"[kernel] {what} groups: G = {g} on {lanes} lanes {grouped:.3f} "
+          f"ms, ungrouped (G = {c}) {whole:.3f} ms")
 
 
 def check_kernels(device, gen) -> dict:
@@ -193,9 +249,10 @@ def check_kernels(device, gen) -> dict:
     rows = crandn_(N_STATIONS, STATION)
     got = fft_rows.fft_pow2(rows)
     err = rel_l2(got, torch.fft.fft(rows.to(torch.complex128)))
+    plain = time_ms(lambda: fft_rows.fft_pow2_plain(rows))
     report("K-FFT rows 64x2^18 fwd rel_l2", err, REL_L2_MAX,
-           time_ms(lambda: fft_rows.fft_pow2(rows)),
-           time_ms(lambda: fft_rows.fft_pow2_plain(rows)))
+           time_ms(lambda: fft_rows.fft_pow2(rows)), plain,
+           bound(16 * rows.numel(), fft_flops(STATION, N_STATIONS)), plain)
     del rows, got
 
     band = crandn_(N_BAND)
@@ -207,19 +264,23 @@ def check_kernels(device, gen) -> dict:
         ms = time_ms(lambda: fft_rows.fft_large_pow2(band, sign))
         plain = time_ms(lambda: fft_rows.fft_pow2_plain(band, sign))
         name = "fwd" if sign < 0 else "bwd"
-        report(f"K-FFT band 2^24 {name} rel_l2", err, REL_L2_MAX, ms, plain)
+        least = bound(16 * N_BAND, fft_flops(N_BAND))
+        report(f"K-FFT band 2^24 {name} rel_l2", err, REL_L2_MAX, ms, plain,
+               least, plain)
         if sign < 0:
             out["K-FFT"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
-                                plain_ms=plain)
+                                plain_ms=plain, **least, library_ms=plain)
         del got, ref
     del band64
 
     real = torch.randn(N_STATIONS, STATION, generator=gen, device=device)
     got = fft_rows.rfft_pow2(real)
     err = rel_l2(got, torch.fft.rfft(real.double()))
+    plain = time_ms(lambda: fft_rows.rfft_pow2_plain(real))
     report("K-FFT rfft 64x2^18 real rel_l2", err, REL_L2_MAX,
-           time_ms(lambda: fft_rows.rfft_pow2(real)),
-           time_ms(lambda: fft_rows.rfft_pow2_plain(real)))
+           time_ms(lambda: fft_rows.rfft_pow2(real)), plain,
+           bound(4 * real.numel() + 8 * got.numel(),
+                 fft_flops(STATION // 2, N_STATIONS)), plain)
     del got
 
     # The wrappers off the main path, at the same row shapes.
@@ -229,9 +290,11 @@ def check_kernels(device, gen) -> dict:
     err = rel_l2(got, ref)
     ms = time_ms(lambda: fft_rows.ifft_pow2(rows))
     plain = time_ms(lambda: torch.fft.ifft(rows))
-    report("K-FFT ifft_pow2 64x2^18 rel_l2", err, REL_L2_MAX, ms, plain)
+    least = bound(16 * rows.numel(), fft_flops(STATION, N_STATIONS))
+    report("K-FFT ifft_pow2 64x2^18 rel_l2", err, REL_L2_MAX, ms, plain,
+           least, plain)
     out["K-FFT ifft_pow2"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
-                                  plain_ms=plain)
+                                  plain_ms=plain, **least, library_ms=plain)
     spec = torch.fft.rfft(real)
     ref = torch.fft.irfft(spec.to(torch.complex128), n=STATION)
     got = fft_rows.irfft_pow2(spec, STATION)
@@ -240,10 +303,12 @@ def check_kernels(device, gen) -> dict:
     err = rel_l2(got, ref)
     ms = time_ms(lambda: fft_rows.irfft_pow2(spec, STATION))
     plain = time_ms(lambda: torch.fft.irfft(spec, n=STATION))
+    least = bound(8 * spec.numel() + 4 * got.numel(),
+                  fft_flops(STATION // 2, N_STATIONS))
     report("K-FFT irfft_pow2 64x2^18 real out rel_l2", err, REL_L2_MAX, ms,
-           plain)
+           plain, least, plain)
     out["K-FFT irfft_pow2"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
-                                   plain_ms=plain)
+                                   plain_ms=plain, **least, library_ms=plain)
     del rows, real, spec, got, ref
 
     c, m, n = N_STATIONS, STATION, N_BAND
@@ -257,12 +322,16 @@ def check_kernels(device, gen) -> dict:
         ms = time_ms(lambda: extract.extract_rows(spec, a0, c, m, s_norm))
         plain = time_ms(
             lambda: extract.extract_rows_plain(spec, a0, c, m, s_norm))
+        least = bound(16 * c * m, fft_flops(m, c))
         report(f"K-EXTRACT 64x2^18 a0={a0} rel_l2", err, REL_L2_MAX, ms,
-               plain)
+               plain, least)
         if a0 == n // 2:
             out["K-EXTRACT"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
-                                    plain_ms=plain)
+                                    plain_ms=plain, **least, library_ms=None)
         del got, ref
+    report_groups("K-EXTRACT 64x2^18", device, c, m, 1,
+                  lambda g, lanes: extract.extract_rows_kernel(
+                      spec, n // 2, c, m, s_norm, group=g, lanes=lanes))
     del spec, spec64, band
 
     taps = deemphasis_taps(AUDIO)
@@ -274,8 +343,22 @@ def check_kernels(device, gen) -> dict:
     err = max_abs(got, ref)
     ms = time_ms(lambda: fir.fir_causal_rows(x, taps, hist))
     plain = time_ms(lambda: fir.fir_causal_plain(x, taps, hist))
-    report("K-FIR 51 taps 128x49152 max_abs", err, FIR_ABS_MAX, ms, plain)
-    out["K-FIR"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    # The library call: one conv1d over the rows with their history in
+    # front (float32; TF32 is off, see main), held to the same bound.
+    xp = torch.cat([hist, x], dim=-1)[:, None, :]
+    weight = torch.tensor(taps[::-1].copy(), dtype=torch.float32,
+                          device=device)[None, None, :]
+    conv = torch.nn.functional.conv1d(xp, weight)[:, 0, :]
+    if not max_abs(conv, ref) <= FIR_ABS_MAX:
+        raise AssertionError("conv1d is no reference for K-FIR: "
+                             f"{max_abs(conv, ref)}")
+    library = time_ms(lambda: torch.nn.functional.conv1d(xp, weight))
+    least = bound(4 * (x.numel() + hist.numel() + got.numel()),
+                  2.0 * len(taps) * x.numel())
+    report("K-FIR 51 taps 128x49152 max_abs", err, FIR_ABS_MAX, ms, plain,
+           least, library)
+    out["K-FIR"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, **least,
+                        library_ms=library)
     return out
 
 
@@ -300,11 +383,12 @@ def check_band_kernels(device, gen) -> dict:
         ms = time_ms(lambda: fft_mixed.fft_large_mixed(band, sign))
         plain = time_ms(lambda: fft_mixed.fft_large_mixed_plain(band, sign))
         name = "fwd" if sign < 0 else "bwd"
+        least = bound(16 * n, fft_flops(n))
         report(f"K-MIXED band 96*2^18 {name} rel_l2", err, REL_L2_MAX, ms,
-               plain)
+               plain, least, plain)
         if sign < 0:
             out["K-MIXED"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
-                                  plain_ms=plain)
+                                  plain_ms=plain, **least, library_ms=plain)
         del got, ref
     del band64
     # The two launch groups of K-MIXED apart (CUDA events around each).
@@ -326,8 +410,25 @@ def check_band_kernels(device, gen) -> dict:
                REL_L2_MAX,
                time_ms(lambda: extract.extract_rows(band, a0, c, m, s_norm)),
                time_ms(lambda: extract.extract_rows_plain(band, a0, c, m,
-                                                          s_norm)))
+                                                          s_norm)),
+               bound(16 * c * m, fft_flops(m, c)))
         del got
+    # 90 stations (no group size divides into it evenly at 4 or 8), from a
+    # start that makes station 37's run wrap at the band's end.
+    a0 = (n // 2 + 10 * m + 12_345) % n
+    g, lanes = extract.grouped_schedule(device, m, 1, C_ODD)
+    got = extract.extract_rows_kernel(band, a0, C_ODD, m, s_norm, group=g,
+                                      lanes=lanes)
+    err = rel_l2(got, extract.extract_rows_plain(spec64, a0, C_ODD, m,
+                                                 s_norm))
+    print(f"[kernel] K-EXTRACT {C_ODD}x2^18 from 96*2^18 a0={a0} G = {g} on "
+          f"{lanes} lanes rel_l2: {err:.3e} (bound {REL_L2_MAX:.0e})")
+    if not err <= REL_L2_MAX:
+        raise AssertionError(f"K-EXTRACT at c={C_ODD}: error {err}")
+    del got
+    report_groups("K-EXTRACT 96x2^18", device, c, m, 1,
+                  lambda g, lanes: extract.extract_rows_kernel(
+                      band, n // 2, c, m, s_norm, group=g, lanes=lanes))
     del spec64, band
 
     # An FM band (not noise: see PERF.md on the demod of a noise band).
@@ -343,9 +444,11 @@ def check_band_kernels(device, gen) -> dict:
     ms = time_ms(lambda: extract_demod.extract_demod_rows(spec, a0, c, m))
     plain = time_ms(
         lambda: extract_demod.extract_demod_rows_plain(spec, a0, c, m))
+    least = bound(12 * c * m, fft_flops(m, c))
     report(f"K-XDEMOD 96x2^18 from 96*2^18 a0={a0} max_abs", err,
-           XDEMOD_ABS_MAX, ms, plain)
-    out["K-XDEMOD"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+           XDEMOD_ABS_MAX, ms, plain, least)
+    out["K-XDEMOD"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, **least,
+                           library_ms=None)
     del got, ref
 
     keep = int(make_wbfm_step(m, AUDIO, mode="fast_spec").needed_bins)
@@ -360,10 +463,49 @@ def check_band_kernels(device, gen) -> dict:
         spec, a0, c, m, keep_bins=keep))
     plain = time_ms(lambda: extract_demod.extract_demod_spec_rows_plain(
         spec, a0, c, m, keep_bins=keep))
+    least = bound(8 * c * (m + keep), 2 * fft_flops(m, c))
     report(f"K-XDEMOD-SPEC 96x2^18 keep {keep} max_abs/max|ref|", err,
-           XSPEC_REL_MAX, ms, plain)
+           XSPEC_REL_MAX, ms, plain, least)
     out["K-XDEMOD-SPEC"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
-                                plain_ms=plain)
+                                plain_ms=plain, **least, library_ms=None)
+    del got, ref
+
+    # The same stations through a band rolled by d bins, read from a0 + d:
+    # 90 of them from station 10 on, so that a run wraps at the band's end
+    # inside a group and the last group is short.
+    d = 10 * m + 12_345
+    rolled = torch.roll(spec, d)
+    rolled64 = torch.roll(spec64, d)
+    a0_r = (a0 + d) % n
+    gain = 1.0 / math.pi
+    g, lanes = extract.grouped_schedule(device, m, 1, C_ODD)
+    got = extract_demod.extract_demod_kernel(rolled, a0_r, C_ODD, m, gain,
+                                             None, group=g, lanes=lanes)
+    err = max_abs(got, extract_demod.extract_demod_rows_plain(
+        rolled64, a0_r, C_ODD, m))
+    print(f"[kernel] K-XDEMOD {C_ODD}x2^18 a0={a0_r} G = {g} on {lanes} "
+          f"lanes max_abs: {err:.3e} (bound {XDEMOD_ABS_MAX:.0e})")
+    if not err <= XDEMOD_ABS_MAX:
+        raise AssertionError(f"K-XDEMOD at c={C_ODD}: error {err}")
+    g, lanes = extract.grouped_schedule(device, m, 2, C_ODD)
+    got = extract_demod.extract_demod_kernel(rolled, a0_r, C_ODD, m, gain,
+                                             keep, group=g, lanes=lanes)
+    ref = extract_demod.extract_demod_spec_rows_plain(rolled64, a0_r, C_ODD,
+                                                      m, keep_bins=keep)
+    err = max_abs(got, ref) / float(ref.abs().max())
+    print(f"[kernel] K-XDEMOD-SPEC {C_ODD}x2^18 a0={a0_r} keep {keep} G = {g} "
+          f"on {lanes} lanes max_abs/max|ref|: {err:.3e} (bound "
+          f"{XSPEC_REL_MAX:.0e})")
+    if not err <= XSPEC_REL_MAX:
+        raise AssertionError(f"K-XDEMOD-SPEC at c={C_ODD}: error {err}")
+    del got, ref, rolled, rolled64, spec64
+
+    report_groups("K-XDEMOD 96x2^18", device, c, m, 1,
+                  lambda g, lanes: extract_demod.extract_demod_kernel(
+                      spec, a0, c, m, gain, None, group=g, lanes=lanes))
+    report_groups("K-XDEMOD-SPEC 96x2^18", device, c, m, 2,
+                  lambda g, lanes: extract_demod.extract_demod_kernel(
+                      spec, a0, c, m, gain, keep, group=g, lanes=lanes))
     return out
 
 
@@ -415,10 +557,15 @@ def run_main_path(device, gen, c=N_STATIONS, sc=STATION, ac=AUDIO,
     return step, state, bands[0], audios[0], launches
 
 
-def step_ms(step, band, state) -> float:
-    """Min over 10 steps (CUDA events) from ``state``."""
+def step_ms(step, band, state) -> str:
+    """Ten steps from ``state``: the min and median of their CUDA-event
+    times, and the host's time to enqueue one (its clock around the ten,
+    before the synchronize): the device waits for the host where that is
+    the longer."""
     import torch
     times = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(10):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -426,8 +573,11 @@ def step_ms(step, band, state) -> float:
         _, state = step(band, state)
         end.record()
         times.append((start, end))
+    host = (time.perf_counter() - t0) * 100.0
     torch.cuda.synchronize()
-    return min(s.elapsed_time(e) for s, e in times)
+    ms = [s.elapsed_time(e) for s, e in times]
+    return (f"step {min(ms):.3f} ms (min of 10; median "
+            f"{statistics.median(ms):.3f}; host enqueues one in {host:.3f})")
 
 
 def stage_ms(step, band, state) -> dict:
@@ -437,6 +587,74 @@ def stage_ms(step, band, state) -> dict:
     x2 = f2(x1)
     return {n1: time_ms(lambda: f1(band)), n2: time_ms(lambda: f2(x1)),
             n3: time_ms(lambda: f3(x2, state))}
+
+
+def profile_step(what, step, band, state, steps: int = 10) -> None:
+    """Trace ``steps`` steps with ``torch.profiler`` and print, per step,
+    the span from the first kernel's start to the last one's end, the
+    device's busy time and idle share, and the device time of each kernel
+    that takes at least 1% of the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        _, state = step(band, state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            _, state = step(band, state)
+        torch.cuda.synchronize()
+    by_name, first, last, busy = {}, None, None, 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t0, t1 = ev.time_range.start, ev.time_range.end
+        first = t0 if first is None else min(first, t0)
+        last = t1 if last is None else max(last, t1)
+        busy += t1 - t0
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + (t1 - t0)
+    if not busy > 0:
+        raise AssertionError(f"{what}: the profiler saw no device time")
+    span = last - first
+    print(f"[{what}] profile, per step of {steps}: span "
+          f"{span / steps / 1e3:.3f} ms, device busy "
+          f"{busy / steps / 1e3:.3f} ms, idle share "
+          f"{max(0.0, 1.0 - busy / span):.3f}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        if us < 0.01 * busy:
+            break
+        print(f"[{what}] profile   {us / steps / 1e3:.3f} ms  {name[:110]}")
+
+
+def check_spills(log: str) -> None:
+    """Print what ``ptxas -v`` reported as spilled for every pass kernel
+    (``*_pass_kernel``) and raise if an instantiation of the demod pass
+    spills, or none of them appears in the log."""
+    import re
+    entry, seen = None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if not (m and entry and "pass_kernel" in entry):
+            continue
+        spilled = int(m.group(1)) or int(m.group(2))
+        if "demod_pass_kernel" in entry:
+            seen += 1
+            if spilled:
+                raise AssertionError(f"{entry} spills registers: "
+                                     f"{line.strip()}")
+        elif spilled:
+            print(f"[build] spills in {entry}: {line.strip()}")
+        entry = None
+    if not seen:
+        raise AssertionError("no ptxas line for demod_pass_kernel in the "
+                             "build log")
+    print(f"[build] demod_pass_kernel: {seen} instantiations, no register "
+          "spills")
 
 
 def against_cpu(what, c, band1, audio1, extract_demod="off") -> float:
@@ -486,7 +704,14 @@ def main() -> int:
     from radiocore_tpu_torch.kernels import build
     from radiocore_tpu_torch.runtime.platform import nvidia_smi_name_power
 
-    t_start = time.perf_counter()
+    t_start = t_lap = time.perf_counter()
+
+    def lap(what):
+        nonlocal t_lap
+        now = time.perf_counter()
+        print(f"[smoke] {what}: {now - t_lap:.1f} s")
+        t_lap = now
+
     smi = nvidia_smi_name_power()
     if not smi:
         raise RuntimeError("nvidia-smi gave no card name and power limit")
@@ -517,30 +742,36 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s total -> "
           f"{res.path.relative_to(REPO)}")
     for line in res.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "Compiling entry" in line
+                or "spill" in line):
             print(f"[build] {line.strip()}")
+    check_spills(res.log)
+    lap("start and build")
 
     # Phase 2: kernels against their plain versions.
     gen = torch.Generator(device=device).manual_seed(SEED)
     kstats = check_kernels(device, gen)
+    lap("kernels at the main shapes")
 
     # Phase 3: the main path.
     step, state, band1, audio1, launches = run_main_path(device, gen)
     print(f"[main] {N_STATIONS} x {STATION} -> {AUDIO}, {CHUNKS} chunks: "
           f"audio {tuple(audio1.shape)} finite; launches {launches}")
     band = fm_band(gen, N_STATIONS, STATION, device)
-    ms = step_ms(step, band, state)
     stages = stage_ms(step, band, state)
-    print(f"[main] step {ms:.3f} ms (min of 10); stages (median of 20) "
+    print(f"[main] {step_ms(step, band, state)}; stages (median of 20) "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+    profile_step("main", step, band, state)
     against_cpu("main", N_STATIONS, band1, audio1)
 
     # Phase 4: one real station.
     check_station("station", step, N_STATIONS, device)
     del step, state, band1, audio1, band
+    lap("main path and station")
 
     # Phase 5: the 96-station kernels against their plain versions.
     kstats.update(check_band_kernels(device, gen))
+    lap("kernels at the 96-station shapes")
 
     # Phase 6: the 96-station paths, the spec path first.
     c = N_STATIONS_96
@@ -554,16 +785,19 @@ def main() -> int:
         for name, count in counts.items():
             launches.setdefault(name, count)
         band = fm_band(gen, c, STATION, device)
-        line = f"[{what}] step {step_ms(step, band, state):.3f} ms (min of 10)"
+        line = f"[{what}] {step_ms(step, band, state)}"
         if xd == "spec":
             line += "; stages (median of 20) " + ", ".join(
                 f"{k} {v:.3f} ms" for k, v in stage_ms(step, band,
                                                        state).items())
         print(line)
+        if xd == "spec":
+            profile_step(what, step, band, state)
         against_cpu(what, c, band1, audio1, xd)
         if xd == "spec":
             check_station(what + " station", step, c, device, xd)
         del step, state, band1, audio1, band
+        lap(f"path {what}")
 
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [

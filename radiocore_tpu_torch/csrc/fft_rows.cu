@@ -36,9 +36,14 @@ extern "C" int rc_fft_pass(const void* in, void* out, int L, int P,
                            long long os, long long ok, long long tw_n,
                            int sign, void* stream) {
   const rc::Extract none = {1, 2, 0, 0.f};
-  return rc::launch_pass<rc::kLoadStrided, rc::kStoreStrided>(
-      in, out, L, P, S, B0, B1, ib0, ib1, is, ij, ob0, ob1, os, ok, tw_n,
-      sign, none, (cudaStream_t)stream);
+  rc::Pass d;
+  int err = rc::make_pass(&d, L, P, S, B0, B1, ib0, ib1, is, ij, ob0, ob1, os,
+                          ok, tw_n, sign, rc::kStoreStrided, 0);
+  if (err) return err;
+  err = rc::prepare_pass<rc::kLoadStrided, rc::kStoreStrided>(d);
+  if (err) return err;
+  return rc::enqueue_pass<rc::kLoadStrided, rc::kStoreStrided>(
+      (const float2*)in, (float2*)out, d, none, (cudaStream_t)stream);
 }
 
 namespace rc {

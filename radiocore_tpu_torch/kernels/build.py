@@ -122,16 +122,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "rc_fft_pass": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                     _L, _L, _I, _P],
-    "rc_extract_pass": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
-                        _L, _L, _L, _L, _L, _I, _L, _L, _L, _F, _P],
+    "rc_l2_cache_bytes": [_P],
+    "rc_extract_rows": [_P, _P, _P, _P, _I, _L, _L, _I, _L, _L, _L, _F, _P,
+                        _P],
+    "rc_extract_demod": [_P, _P, _P, _P, _P, _L, _L, _I, _L, _L, _L, _F, _L,
+                         _P, _P],
     "rc_fir": [_P, _L, _P, _L, _P, _P, _L, _L, _I, _P],
     "rc_rfft_untangle": [_P, _P, _L, _I, _P],
     "rc_irfft_tangle": [_P, _P, _L, _I, _P],
     "rc_mixed_column": [_P, _P, _I, _L, _I, _P, _P],
-    "rc_demod_pass": [_P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
-                      _F, _P],
-    "rc_keep_pass": [_P, _P, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                     _L, _L, _I, _L, _P],
 }
 
 

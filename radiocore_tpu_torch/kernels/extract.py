@@ -6,7 +6,12 @@ m-bin run starts at spectrum bin ``(a0 + i·m) mod n``; the kernel
 (``csrc/extract.cu``) is K-FFT's pass plan for m-point rows with the
 window, fold and ``s_norm`` scale as the first pass's load prologue and
 the ``(−1)^t`` flip as the last pass's store epilogue, so it reads the
-runs in place and writes the station IQ once.
+runs in place and writes the station IQ once. A station of more than
+4096 points takes two passes with a scratch between them; the passes run
+per group of G stations (:func:`grouped_schedule`), the groups dealt over
+lanes with a G-station scratch each that the lane's next group
+overwrites, so the scratch stays in the card's L2 and kernels of
+neighbouring groups overlap.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs
 :func:`extract_rows_plain`.
@@ -14,7 +19,10 @@ A CUDA tensor launches the kernel (or raises); a CPU tensor runs
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import ctypes
+import dataclasses
+import functools
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +35,18 @@ LOAD_STRIDED, LOAD_EXTRACT = 0, 1
 STORE_STRIDED, STORE_FLIP = 0, 1
 
 launches = LaunchCounter()
+
+# The grouped schedule (measured on an H100, PERF.md): the passes run per
+# group of G stations, the groups dealt in turn over LANES streams with a
+# scratch set each, so that kernels of neighbouring groups overlap. All
+# lanes' scratch together takes at most L2_SHARE of the L2 (the spectrum
+# streaming in and the result streaming out share the cache): at 2^18
+# points G = 8 on two lanes, 32 MB of an H100's 50 MB. One lane, or a third
+# of the L2, measured slower than the passes over the whole batch: a group
+# must fill the SMs (8 stations are 256 blocks) and two must be in flight.
+L2_SHARE = (2, 3)
+LANES = 2
+MAX_LANES = 4           # csrc/fft_common.cuh kMaxLanes
 
 
 def extract_ok(n: int, m: int, c: int) -> bool:
@@ -71,8 +91,78 @@ def extract_rows_plain(spectrum: torch.Tensor, a0: int, c: int, m: int,
     return y * flip
 
 
-def _extract_kernel(spectrum: torch.Tensor, a0: int, c: int, m: int,
-                    s_norm: float) -> torch.Tensor:
+def group_size(l2_bytes: int, m: int, buffers: int, c: int,
+               lanes: int = 1) -> int:
+    """Stations per group: the most whose scratch (``buffers`` complex64
+    arrays of ``m`` points per station, for each of ``lanes`` groups in
+    flight) fits :data:`L2_SHARE` of an L2 of ``l2_bytes``; at least 1,
+    at most ``c``."""
+    num, den = L2_SHARE
+    return max(1, min(c, l2_bytes * num // (den * lanes * buffers * m * 8)))
+
+
+@functools.lru_cache(maxsize=8)
+def l2_cache_bytes(device_index: int) -> int:
+    """The L2 size of a CUDA device (``cudaDevAttrL2CacheSize``)."""
+    import torch.cuda
+    from radiocore_tpu_torch.kernels import build
+    size = ctypes.c_longlong(0)
+    with torch.cuda.device(device_index):
+        build.check(build.library().rc_l2_cache_bytes(ctypes.byref(size)),
+                    "rc_l2_cache_bytes")
+    return int(size.value)
+
+
+def grouped_schedule(device: torch.device, m: int, buffers: int,
+                     c: int) -> Tuple[int, int]:
+    """``(group, lanes)`` of the grouped schedule on ``device``:
+    :data:`LANES` lanes and the :func:`group_size` its L2 gives them."""
+    return (group_size(l2_cache_bytes(device.index), m, buffers, c, LANES),
+            LANES)
+
+
+def grouped_launches(passes: Sequence[Pass], c: int, group: int, a0: int,
+                     n: int, m: int, lanes: int = 1
+                     ) -> Iterator[Tuple[Pass, int, int, int]]:
+    """The launches of a grouped schedule, in order, as the C entry points
+    (``rc_extract_rows``, ``rc_extract_demod``) make them: for each group
+    of ``group`` stations from station g0, every pass with ``B1`` = the
+    group's station count, as ``(pass, a0_g, dst_offset, scratch_offset)``.
+    ``a0_g = (a0 + g0·m) mod n`` is the group's start bin for the
+    extraction load; ``dst_offset = g0·ob1`` where the pass writes the
+    result ``"y"``; ``scratch_offset = lane·group·m`` into each scratch
+    buffer, group i on lane ``i mod lanes``: a lane's scratch holds one
+    group and is reused by the lane's next. A one-pass plan (its rows are
+    the sub-FFT index, no scratch) is one launch over the whole batch."""
+    if len(passes) == 1:
+        yield passes[0], a0, 0, 0
+        return
+    for i, g0 in enumerate(range(0, c, group)):
+        cg = min(group, c - g0)
+        for p in passes:
+            yield (dataclasses.replace(p, B1=cg), (a0 + g0 * m) % n,
+                   g0 * p.ob1 if p.dst == "y" else 0,
+                   (i % lanes) * group * m)
+
+
+@functools.lru_cache(maxsize=32)
+def _records(m: int, c: int):
+    return fft_rows.pass_records([p for p, _, _ in extract_passes(m, c)])
+
+
+def extract_rows_kernel(spectrum: torch.Tensor, a0: int, c: int, m: int,
+                        s_norm: float, group: Optional[int] = None,
+                        lanes: Optional[int] = None) -> torch.Tensor:
+    """The CUDA route of :func:`extract_rows`. Buffers: the result
+    ``(c, m)`` complex64 and, for a two-pass plan (m > 4096), one scratch
+    of ``lanes·G·m`` complex64 points (32 MB for 2 lanes of G = 8
+    stations of 2^18) that the station groups reuse in turn. ``group``
+    and ``lanes`` (default :func:`grouped_schedule`; ``group=c`` runs the
+    passes over the whole batch) are the schedule, for timing one against
+    another; the result does not depend on them. One C call enqueues
+    every launch, ordered on the current stream: the side streams start
+    after what that stream holds and it waits for them, so the scratch,
+    allocated on it, is safe to free when this returns."""
     from radiocore_tpu_torch.kernels import build
     if spectrum.dtype != torch.complex64:
         raise TypeError(f"extract_rows: kernel takes complex64, "
@@ -81,20 +171,26 @@ def _extract_kernel(spectrum: torch.Tensor, a0: int, c: int, m: int,
         raise ValueError("extract_rows: kernel takes a contiguous spectrum")
     n = int(spectrum.shape[-1])
     lib = build.library()
-    y = torch.empty((c, m), dtype=torch.complex64, device=spectrum.device)
-    bufs = {"x": spectrum, "y": y}
-    passes = extract_passes(m, c)
-    if len(passes) > 1:
-        bufs["s"] = torch.empty_like(y)
-    stream = torch.cuda.current_stream().cuda_stream
-    for p, load, store in passes:
-        err = lib.rc_extract_pass(
-            bufs[p.src].data_ptr(), bufs[p.dst].data_ptr(), load, store,
-            p.L, p.P, p.S, p.B0, p.B1, p.ib0, p.ib1, p.is_, p.ij, p.ob0,
-            p.ob1, p.os, p.ok, p.tw_n, 1, n, m, int(a0), float(s_norm),
-            stream)
-        build.check(err, f"rc_extract_pass(L={p.L}, m={m})")
-        launches.count += 1
+    dev = spectrum.device
+    records = _records(m, c)
+    npass = len(records) // fft_rows.PASS_FIELDS
+    if npass == 1:
+        group = c
+    elif group is None:
+        group, lanes = grouped_schedule(dev, m, 1, c)
+    group = max(1, min(int(group), c))
+    lanes = max(1, min(int(lanes or 1), MAX_LANES, -(-c // group)))
+    y = torch.empty((c, m), dtype=torch.complex64, device=dev)
+    scratch = (torch.empty(lanes * group * m, dtype=torch.complex64,
+                           device=dev) if npass > 1 else None)
+    made = ctypes.c_int(0)
+    err = lib.rc_extract_rows(
+        spectrum.data_ptr(), y.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, records, npass,
+        c, group, lanes, n, m, int(a0), float(s_norm),
+        torch.cuda.current_stream().cuda_stream, ctypes.byref(made))
+    launches.count += made.value
+    build.check(err, f"rc_extract_rows(m={m}, c={c}, group={group})")
     return y
 
 
@@ -110,7 +206,7 @@ def extract_rows(spectrum: torch.Tensor, a0: int, c: int, m: int,
         raise ValueError(f"extract_rows: unsupported plan n={n} m={m} c={c}")
     a0 = int(a0) % n
     if spectrum.is_cuda:
-        return _extract_kernel(spectrum, a0, c, m, s_norm)
+        return extract_rows_kernel(spectrum, a0, c, m, s_norm)
     if spectrum.device.type != "cpu":
         raise ValueError(f"extract_rows: no kernel for {spectrum.device}")
     return extract_rows_plain(spectrum, a0, c, m, s_norm)

@@ -12,7 +12,10 @@ K-EXTRACT's first pass (extraction load, n1-point DFTs, twiddle), then
 the demod pass — the n2-point DFT of each row ``s`` with the demod in its
 epilogue, each block carrying one halo row so that ``x[t−1]`` is in
 shared memory — and, for SPEC, a keep pass that finishes the forward
-transform and writes bins ``< keep`` only.
+transform and writes bins ``< keep`` only. K-XDEMOD's passes run per
+group of G stations over lanes (``extract.grouped_schedule``), as
+K-EXTRACT's; K-XDEMOD-SPEC's run over the whole batch, which measured
+faster (:func:`extract_demod_kernel`).
 
 A CUDA tensor launches the kernels (or raises); a CPU tensor runs the
 plain versions.
@@ -20,6 +23,7 @@ plain versions.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -27,14 +31,19 @@ from typing import Optional, Tuple
 
 import torch
 
-from radiocore_tpu_torch.kernels import fft_rows
-from radiocore_tpu_torch.kernels.extract import (LOAD_EXTRACT, STORE_STRIDED,
-                                                 extract_rows_plain)
+from radiocore_tpu_torch.kernels import extract, fft_rows
+from radiocore_tpu_torch.kernels.extract import extract_rows_plain
 from radiocore_tpu_torch.kernels.fft_rows import MIN_ROW, Pass, LaunchCounter
 from radiocore_tpu_torch.ops.demod import quadrature_demod
 
 MAX_DEMOD_ROW = 1 << 18
 LANES = 128     # the JAX kernel's lane digit, for its A == C rule
+# The demod pass's block: (P + 1)·n2/16 threads, P rows and a halo row.
+# csrc/extract_demod.cu builds it for at most 288 threads at three blocks
+# per SM: P = 8 at n2 = 512, which measured faster on an H100 than P = 16
+# (544 threads at two blocks per SM; PERF.md).
+DEMOD_MAX_THREADS = 288     # csrc/extract_demod.cu kDemodThreads
+DEMOD_ROWS = 8              # rows per block at most (P)
 
 launches = LaunchCounter()        # K-XDEMOD
 spec_launches = LaunchCounter()   # K-XDEMOD-SPEC
@@ -66,13 +75,22 @@ def extract_demod_spec_ok(n: int, m: int, c: int) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class DemodPlan:
-    """``first``: K-EXTRACT's first pass (``rc_extract_pass``, extraction
-    load), ``x → s``. ``demod``: the demod pass (``rc_demod_pass``), rows
-    ``s`` of n2 points, ``s → y`` (quad) or ``s → t`` (SPEC, ``tw_n = m``).
-    ``keep``: SPEC's last pass (``rc_keep_pass``), ``t → y``."""
+    """``first``: K-EXTRACT's first pass (extraction load), ``x → s``.
+    ``demod``: the demod pass, rows ``s`` of n2 points, ``s → y`` (quad)
+    or ``s → t`` (SPEC, ``tw_n = m``). ``keep``: SPEC's last pass (a
+    K-FFT pass with the keep store), ``t → y``."""
     first: Pass
     demod: Pass
     keep: Optional[Pass]
+
+    @property
+    def passes(self) -> Tuple[Pass, ...]:
+        return tuple(p for p in (self.first, self.demod, self.keep) if p)
+
+
+def demod_threads(rows: int, n2: int) -> int:
+    """Threads of a demod block of ``rows`` rows and the halo row."""
+    return (rows + 1) * n2 // fft_rows.POINTS_PER_THREAD
 
 
 @functools.lru_cache(maxsize=32)
@@ -88,10 +106,10 @@ def plan(m: int, c: int, keep: Optional[int] = None) -> DemodPlan:
     # Row s = k1 (n2 points, unit stride) → x̃[t] at t = s + n1·k. SPEC:
     # the forward split j = s + n1·k has the quad rows as its first
     # pass's inputs; output (k1', s) at k1'·n1 + s, the same strides.
-    # The demod block also holds a halo row: (P + 1)·n2 points at most
-    # the kernel's block.
-    p_demod = group(n2, n1)
-    while (p_demod + 1) * n2 > fft_rows.KERNEL_BLOCK_POINTS:
+    # The demod block also holds a halo row: (P + 1)·n2/16 threads at
+    # most the kernel's block.
+    p_demod = min(group(n2, n1), DEMOD_ROWS)
+    while p_demod > 1 and demod_threads(p_demod, n2) > DEMOD_MAX_THREADS:
         p_demod //= 2
     demod = Pass(n2, p_demod, n1, 1, c, 0, m, n2, 1, 0, m, 1, n1,
                  m if keep else 0, "s", "t" if keep else "y")
@@ -121,8 +139,29 @@ def _keep_bins(m: int, keep_bins: Optional[int]) -> int:
     return int(keep_bins)
 
 
-def _kernel(spectrum: torch.Tensor, a0: int, c: int, m: int, gain: float,
-            keep: Optional[int]) -> torch.Tensor:
+@functools.lru_cache(maxsize=32)
+def _records(m: int, c: int, keep: Optional[int]):
+    return fft_rows.pass_records(plan(m, c, keep).passes)
+
+
+def extract_demod_kernel(spectrum: torch.Tensor, a0: int, c: int, m: int,
+                         gain: float, keep: Optional[int],
+                         group: Optional[int] = None,
+                         lanes: Optional[int] = None) -> torch.Tensor:
+    """The CUDA route of :func:`extract_demod_rows` (``keep`` None) and
+    :func:`extract_demod_spec_rows`. Buffers: the result, ``(c, m)``
+    float32 or ``(c, keep)`` complex64; the scratch ``s`` of
+    ``lanes·G·m`` complex64 points and, for SPEC, ``t`` of the same size,
+    which the station groups reuse in turn. ``group`` and ``lanes`` are
+    the schedule, for timing one against another; the result does not
+    depend on them. By default K-XDEMOD takes
+    ``extract.grouped_schedule`` (32 MB of ``s`` for 2 lanes of G = 8
+    stations of 2^18); K-XDEMOD-SPEC, whose three passes per group would
+    be of 4 stations, too few to fill the card, measured slower grouped
+    on an H100 (PERF.md) and runs its passes over the whole batch
+    (``group = c``: ``s`` and ``t`` of the result's station count). One C
+    call enqueues every launch, ordered on the current stream (see
+    ``extract.extract_rows_kernel``)."""
     from radiocore_tpu_torch.kernels import build
     if spectrum.dtype != torch.complex64:
         raise TypeError(f"extract_demod: kernel takes complex64, "
@@ -130,42 +169,31 @@ def _kernel(spectrum: torch.Tensor, a0: int, c: int, m: int, gain: float,
     if not spectrum.is_contiguous():
         raise ValueError("extract_demod: kernel takes a contiguous spectrum")
     n = int(spectrum.shape[-1])
-    pl = plan(m, c, keep)
     lib = build.library()
     dev = spectrum.device
-    bufs = {"x": spectrum,
-            "s": torch.empty(c * m, dtype=torch.complex64, device=dev)}
+    if group is None:
+        group, lanes = (c, 1) if keep else extract.grouped_schedule(dev, m,
+                                                                    1, c)
+    group = max(1, min(int(group), c))
+    lanes = max(1, min(int(lanes or 1), extract.MAX_LANES, -(-c // group)))
+    s = torch.empty(lanes * group * m, dtype=torch.complex64, device=dev)
     if keep:
-        bufs["t"] = torch.empty(c * m, dtype=torch.complex64, device=dev)
-        bufs["y"] = torch.empty((c, keep), dtype=torch.complex64, device=dev)
+        t = torch.empty(lanes * group * m, dtype=torch.complex64, device=dev)
+        y = torch.empty((c, keep), dtype=torch.complex64, device=dev)
     else:
-        bufs["y"] = torch.empty((c, m), dtype=torch.float32, device=dev)
-    counter = spec_launches if keep else launches
-    stream = torch.cuda.current_stream().cuda_stream
-
-    p = pl.first
-    err = lib.rc_extract_pass(
-        bufs[p.src].data_ptr(), bufs[p.dst].data_ptr(), LOAD_EXTRACT,
-        STORE_STRIDED, p.L, p.P, p.S, p.B0, p.B1, p.ib0, p.ib1, p.is_, p.ij,
-        p.ob0, p.ob1, p.os, p.ok, p.tw_n, 1, n, m, int(a0), 1.0 / n, stream)
-    build.check(err, f"rc_extract_pass(L={p.L}, m={m}) for extract_demod")
-    counter.count += 1
-    p = pl.demod
-    err = lib.rc_demod_pass(
-        bufs[p.src].data_ptr(), bufs[p.dst].data_ptr(), int(bool(keep)),
-        p.L, p.P, p.S, p.B1, p.ib1, p.is_, p.ob1, p.os, p.ok, p.tw_n,
-        float(gain), stream)
-    build.check(err, f"rc_demod_pass(L={p.L}, m={m})")
-    counter.count += 1
-    if keep:
-        p = pl.keep
-        err = lib.rc_keep_pass(
-            bufs[p.src].data_ptr(), bufs[p.dst].data_ptr(), p.L, p.P, p.S,
-            p.B0, p.B1, p.ib0, p.ib1, p.is_, p.ij, p.ob0, p.ob1, p.os, p.ok,
-            p.tw_n, -1, p.keep, stream)
-        build.check(err, f"rc_keep_pass(L={p.L}, keep={keep})")
-        counter.count += 1
-    return bufs["y"]
+        t = None
+        y = torch.empty((c, m), dtype=torch.float32, device=dev)
+    made = ctypes.c_int(0)
+    err = lib.rc_extract_demod(
+        spectrum.data_ptr(), y.data_ptr(), s.data_ptr(),
+        t.data_ptr() if t is not None else None,
+        _records(m, c, keep), c, group, lanes, n, m, int(a0),
+        float(gain), keep or 0,
+        torch.cuda.current_stream().cuda_stream, ctypes.byref(made))
+    (spec_launches if keep else launches).count += made.value
+    build.check(err, f"rc_extract_demod(m={m}, c={c}, keep={keep}, "
+                     f"group={group})")
+    return y
 
 
 def extract_demod_rows_plain(spectrum: torch.Tensor, a0: int, c: int,
@@ -208,7 +236,7 @@ def extract_demod_rows(spectrum: torch.Tensor, a0: int, c: int, m: int,
     n = _check(spectrum, c, m, "extract_demod_rows", extract_demod_ok)
     a0 = int(a0) % n
     if _use_kernel(spectrum):
-        return _kernel(spectrum, a0, c, m, _gain(gain), None)
+        return extract_demod_kernel(spectrum, a0, c, m, _gain(gain), None)
     return extract_demod_rows_plain(spectrum, a0, c, m, gain)
 
 
@@ -224,5 +252,5 @@ def extract_demod_spec_rows(spectrum: torch.Tensor, a0: int, c: int,
     k = _keep_bins(m, keep_bins)
     a0 = int(a0) % n
     if _use_kernel(spectrum):
-        return _kernel(spectrum, a0, c, m, _gain(gain), k)
+        return extract_demod_kernel(spectrum, a0, c, m, _gain(gain), k)
     return extract_demod_spec_rows_plain(spectrum, a0, c, m, gain, k)

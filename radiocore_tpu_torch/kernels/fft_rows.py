@@ -16,6 +16,7 @@ on-card comparison use.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Tuple
@@ -30,7 +31,13 @@ SUB_MAX = 4096          # longest sub-FFT of one pass (32 KB of complex64)
 # 8192 points are 512 threads and 70 KB of shared memory, so two blocks
 # are resident per SM and one block's loads overlap another's butterflies.
 BLOCK_POINTS = 8192
+# 512-point sub-FFTs take blocks of 8 (256 threads, three blocks per SM):
+# the kernel built for that length then has 80 registers a thread and does
+# not spill (csrc/fft_common.cuh kFastLg, kFastThreads).
+FAST_SUB = 512
+FAST_BLOCK_POINTS = 4096
 KERNEL_BLOCK_POINTS = 16384   # csrc/fft_common.cuh kBlockPoints
+POINTS_PER_THREAD = 16        # csrc/fft_common.cuh kVals
 MIN_GROUP = 4           # sub-FFTs per block at least: 32-byte strided runs
 TWIDDLE_BITS = 12       # two-level twiddle tables of 2^12 entries
 
@@ -74,6 +81,19 @@ class Pass:
     keep: int = 0
 
 
+PASS_FIELDS = 15        # csrc/fft_common.cuh kPassFields
+
+
+def pass_records(passes) -> ctypes.Array:
+    """The passes as the flat ``long long`` records the C schedule entry
+    points read (``csrc/fft_common.cuh`` ``pass_from_record``): L, P, S,
+    B0, B1, ib0, ib1, is, ij, ob0, ob1, os, ok, tw_n, keep per pass."""
+    flat = [v for p in passes for v in (
+        p.L, p.P, p.S, p.B0, p.B1, p.ib0, p.ib1, p.is_, p.ij, p.ob0, p.ob1,
+        p.os, p.ok, p.tw_n, p.keep)]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
 def _is_pow2(n: int) -> bool:
     return n >= 1 and (n & (n - 1)) == 0
 
@@ -89,7 +109,9 @@ def _group(L: int, S: int) -> int:
     """Sub-FFTs per block: fill BLOCK_POINTS, but at least MIN_GROUP (a
     strided side then moves whole 32-byte sectors) within the kernel's
     block; at most next_pow2(S)."""
-    p = max(BLOCK_POINTS // L, min(MIN_GROUP, KERNEL_BLOCK_POINTS // L), 1)
+    points = min(FAST_BLOCK_POINTS, BLOCK_POINTS) if L == FAST_SUB \
+        else BLOCK_POINTS
+    p = max(points // L, min(MIN_GROUP, KERNEL_BLOCK_POINTS // L), 1)
     return min(p, 1 << max(S - 1, 0).bit_length())
 
 

@@ -11,6 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_extract import extraction_load
 from test_torch_fft_rows import emulate_passes
 
 torch.set_num_threads(2)
@@ -147,61 +148,147 @@ def demod_model(p, src, gain, spec):
     return out
 
 
+def emulate_extract_demod(spectrum, a0, c, m, n, gain, keep, group,
+                          lanes=1):
+    """K-XDEMOD(-SPEC)'s grouped schedule in numpy: the launches of
+    ``grouped_launches`` in order over ONE scratch set (``s`` and, for
+    SPEC, ``t``) of ``group`` stations per lane that every group of the
+    lane overwrites, the result written at each group's offset. Returns
+    it and the number of launches."""
+    from radiocore_tpu_torch.kernels import extract_demod as xd
+    from radiocore_tpu_torch.kernels.extract import grouped_launches
+    pl = xd.plan(m, c, keep)
+    width = keep or m
+    y = np.full(c * width, np.nan, np.complex128 if keep else np.float64)
+    s = np.full(lanes * group * m, np.nan, np.complex128)
+    t = np.full(lanes * group * m, np.nan, np.complex128)
+    launches = list(grouped_launches(pl.passes, c, group, a0, n, m, lanes))
+    for i, (p, a0_g, off, at) in enumerate(launches):
+        cg = p.B1
+        role = i % len(pl.passes)
+        if role == 0:
+            assert (p.src, p.dst) == ("x", "s")
+            emulate_passes([p], None, +1.0, cg * m, modes=[(1, 0)],
+                           load_fn=extraction_load(a0_g, m, n, 1.0 / n),
+                           bufs={"x": spectrum, "s": s[at:at + cg * m]})
+        elif role == 1:
+            assert p.src == "s" and p.dst == ("t" if keep else "y")
+            out = demod_model(p, s[at:], gain, bool(keep))
+            if keep:
+                assert off == 0
+                t[at:at + cg * m] = out
+            else:
+                y[off:off + cg * m] = out
+        else:
+            assert (p.src, p.dst) == ("t", "y")
+            emulate_passes([p], None, -1.0, cg * keep,
+                           bufs={"t": t[at:], "y": y[off:off + cg * keep]})
+    return y.reshape(c, width), len(launches)
+
+
+@pytest.mark.parametrize("group", [1, 2, None])
 @pytest.mark.parametrize("block_points", [None, 1024])
-@pytest.mark.parametrize("spec", [False, True])
+@pytest.mark.parametrize("mode", ["quad", "spec_keep", "spec_full"])
 @pytest.mark.parametrize("c,m,n,a0", [
     (3, 8192, 1 << 15, 12_345),       # unaligned, wraps at n
     (2, 16_384, 1 << 16, 40_000),     # unaligned, wraps at n
 ])
-def test_kernel_plan_emulated(c, m, n, a0, spec, block_points, monkeypatch):
+def test_kernel_plan_emulated(c, m, n, a0, mode, block_points, group,
+                              monkeypatch):
     """The passes K-XDEMOD(-SPEC) launches, modelled in numpy, against
-    the float64 plain versions. With 1024 points per block the demod pass
-    has 8 or 16 blocks per station, so x[t-1] crosses block edges through
-    the halo row as well as at k1 = 0."""
+    the float64 plain versions: per group of G stations (1, 2 — which
+    does not divide c = 3 — and the whole batch) over one reused scratch
+    set, with and without ``keep_bins``. With 1024 points per block the
+    demod pass has 8 or 16 blocks per station, so x[t-1] crosses block
+    edges through the halo row as well as at k1 = 0."""
     from radiocore_tpu_torch.kernels import extract_demod as xd
     from radiocore_tpu_torch.kernels import fft_rows
     if block_points:
         monkeypatch.setattr(fft_rows, "BLOCK_POINTS", block_points)
     xd.plan.cache_clear()
     try:
-        keep = m // 4 + 100 if spec else None
+        keep = {"quad": None, "spec_keep": m // 4 + 100, "spec_full": m}[mode]
         pl = xd.plan(m, c, keep)
         assert pl.demod.S % pl.demod.P == 0
         assert pl.demod.P * pl.demod.L <= fft_rows.BLOCK_POINTS
         if block_points:
             assert pl.demod.S // pl.demod.P >= 8
+        assert [p.B1 for p in pl.passes] == [c] * len(pl.passes)
         spectrum = _spectrum(n, seed=c + m).astype(np.complex128)
-        s_norm = 1.0 / n
-        gain = 1.0 / np.pi
-
-        def load(src, off):
-            kk = off & (m - 1)
-            w = 0.5 * s_norm * (1 + np.cos(2 * np.pi * (kk - m // 2) / n))
-            v = src[(a0 + off) % n]
-            v = v + np.where(kk == 0, src[(a0 + off + m) % n], 0)
-            return v * w
-
-        bufs = {"x": spectrum, "s": np.zeros(c * m, np.complex128)}
-        emulate_passes([pl.first], None, +1.0, c * m, modes=[(1, 0)],
-                       load_fn=load, bufs=bufs)
-        assert pl.first.src == "x" and pl.first.dst == pl.demod.src == "s"
-        out = demod_model(pl.demod, bufs["s"], gain, spec)
+        group = c if group is None else group
+        got, launches = emulate_extract_demod(spectrum, a0, c, m, n,
+                                              1.0 / np.pi, keep, group)
+        assert launches == len(pl.passes) * -(-c // group)
         spec_t = torch.from_numpy(spectrum)
-        if not spec:
-            assert pl.keep is None and pl.demod.dst == "y"
+        if not keep:
+            assert pl.keep is None
             want = xd.extract_demod_rows_plain(spec_t, a0, c, m).numpy()
-            np.testing.assert_allclose(out.reshape(c, m), want, atol=1e-9)
+            np.testing.assert_allclose(got, want, atol=1e-9)
             return
-        p3 = pl.keep
-        assert pl.demod.dst == p3.src == "t" and p3.dst == "y"
-        bufs = {"t": out, "y": np.zeros(c * keep, np.complex128)}
-        got = emulate_passes([p3], None, -1.0, c * keep, bufs=bufs)
         want = xd.extract_demod_spec_rows_plain(spec_t, a0, c, m,
                                                 keep_bins=keep).numpy()
-        np.testing.assert_allclose(got.reshape(c, keep), want,
-                                   atol=1e-9 * np.abs(want).max())
+        np.testing.assert_allclose(got, want, atol=1e-9 * np.abs(want).max())
     finally:
         xd.plan.cache_clear()
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("group", [1, 2, 3])
+@pytest.mark.parametrize("keep_bins", [None, 16_384 // 4 + 100])
+def test_grouped_spec_matches_pallas(keep_bins, group, lanes):
+    """The grouped SPEC schedule (c = 3, a0 wrapping at n inside the group
+    of G = 2) against the JAX Pallas kernel in interpret mode, at the JAX
+    suite's bound."""
+    from radiocore_tpu.kernels.extract_demod_pallas import (
+        extract_demod_spec_rows_pallas)
+    c, m, n = 3, 16_384, 65_536
+    a0 = 40_000
+    spec = _spectrum(n, seed=17)
+    keep = m if keep_bins is None else keep_bins
+    want = np.asarray(extract_demod_spec_rows_pallas(
+        jnp.asarray(spec), a0, c, m, keep_bins=keep_bins))[:, :keep]
+    got, _ = emulate_extract_demod(spec.astype(np.complex128), a0, c, m, n,
+                                   1.0 / np.pi, keep, group, lanes)
+    scale = np.max(np.abs(want))
+    np.testing.assert_allclose(got / scale, want / scale, atol=SPEC_REL)
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("group", [1, 2, 3])
+def test_grouped_quad_matches_pallas(group, lanes):
+    """The grouped K-XDEMOD schedule against the JAX Pallas kernel."""
+    from radiocore_tpu.kernels.extract_demod_pallas import (
+        extract_demod_rows_pallas)
+    c, m, n = 3, 8192, 32_768
+    a0 = 20_000
+    spec = _spectrum(n, seed=19)
+    want = np.asarray(extract_demod_rows_pallas(jnp.asarray(spec), a0, c, m))
+    got, _ = emulate_extract_demod(spec.astype(np.complex128), a0, c, m, n,
+                                   1.0 / np.pi, None, group, lanes)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    assert np.all(got[:, 0] == 0.0)
+
+
+@pytest.mark.parametrize("lg_m", range(8, 19))
+def test_demod_block_within_kernel_limits(lg_m):
+    """The demod plan's (P, threads) pairs against the kernel's limits:
+    P a power of two dividing the rows, (P + 1)·n2/16 threads within the
+    kernel's launch bounds (288 threads: 8 rows of 512 points and the
+    halo), and the block's shared memory within an SM's at the three
+    blocks per SM it is built for."""
+    from radiocore_tpu_torch.kernels import extract_demod as xd
+    m = 1 << lg_m
+    pl = xd.plan(m, 4)
+    p, n2 = pl.demod.P, pl.demod.L
+    assert p >= 1 and p & (p - 1) == 0 and pl.demod.S % p == 0
+    assert p <= xd.DEMOD_ROWS
+    threads = xd.demod_threads(p, n2)
+    assert threads == (p + 1) * n2 // 16 <= xd.DEMOD_MAX_THREADS == 288
+    if m == 1 << 18:
+        assert (p, threads) == (8, 288)
+    smem = 8 * (p + 1) * (n2 + n2 // 16 + 1)      # row_pitch(n2) points
+    assert 3 * (smem + 1024) <= 227 * 1024
+    assert 16 <= n2 <= 512 and pl.first.L * n2 == m
 
 
 def test_main_path_plan():
@@ -209,5 +296,5 @@ def test_main_path_plan():
     pl = xd.plan(1 << 18, 96, 63_601)
     assert [pl.first.L, pl.demod.L, pl.keep.L] == [512, 512, 512]
     # P + 1 rows (the halo) of 512 points within the kernel's block.
-    assert pl.demod.P == 16 and pl.demod.S == 512
+    assert pl.demod.P == 8 and pl.demod.S == 512
     assert pl.keep.ob1 == 63_601 and pl.keep.keep == 63_601

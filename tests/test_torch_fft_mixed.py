@@ -126,9 +126,9 @@ def test_band_split():
     rows = row_passes(96, 1 << 18)
     assert [p.L for p in rows] == [512, 512]
     # The last pass's sub-FFTs are the 96 rows: a block stores runs of P
-    # neighbouring outputs k1 .. k1 + P - 1 (P·L = BLOCK_POINTS).
+    # neighbouring outputs k1 .. k1 + P - 1 (P·L = FAST_BLOCK_POINTS).
     last = rows[-1]
-    assert (last.S, last.P, last.os) == (96, 16, 1)
+    assert (last.S, last.P, last.os) == (96, 8, 1)
     assert last.ob1 == 96 and last.ok == 96 * 512
 
 

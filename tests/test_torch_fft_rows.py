@@ -169,7 +169,7 @@ def test_main_path_plans():
     from radiocore_tpu_torch.kernels.fft_rows import plan
     rows = plan(1 << 18, 64)
     assert [p.L for p in rows] == [512, 512]
-    assert [p.P for p in rows] == [16, 16]
+    assert [p.P for p in rows] == [8, 8]       # 256-thread blocks at 512
     assert [p.L for p in plan(1 << 17, 64)] == [512, 256]
     band = plan(1 << 24, 1)
     assert [p.L for p in band] == [4096, 4096]
@@ -179,6 +179,19 @@ def test_main_path_plans():
     # block is P*L/16 threads.
     for p in rows + band:
         assert 16 <= p.L and p.P * p.L // 16 <= 1024
+
+
+@pytest.mark.parametrize("n,batch", [(1 << 18, 64), (1 << 17, 64),
+                                     (1 << 19, 3), (1 << 24, 1), (512, 5)])
+def test_block_threads_within_kernel_bounds(n, batch):
+    """A block is P·L/16 threads: at most 256 for 512-point sub-FFTs (the
+    launch bounds of the kernel built for that length, three blocks per
+    SM) and 1024 otherwise."""
+    from radiocore_tpu_torch.kernels import fft_rows as fr
+    for p in fr.plan(n, batch):
+        threads = p.P * p.L // fr.POINTS_PER_THREAD
+        assert threads <= (256 if p.L == fr.FAST_SUB else 1024)
+        assert p.P >= min(fr.MIN_GROUP, 1 << max(p.S - 1, 0).bit_length())
 
 
 @pytest.mark.parametrize("sign", [-1.0, 1.0])
