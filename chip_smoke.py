@@ -7,7 +7,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 1. builds the hand-written kernels from ``radiocore_tpu_torch/csrc`` with
    ``nvcc`` for ``sm_90a``;
 2. runs K-FFT (rows, band, rfft, and the ``ifft_pow2`` and ``irfft_pow2``
-   wrappers), K-EXTRACT and K-FIR at the main path's shapes against their
+   wrappers), K-EXTRACT and K-FIR (51 taps at the main path's shape, timed
+   before and after the FFT kernels; 129 taps; a ragged length through a
+   strided view) at the main path's shapes against their
    plain PyTorch versions on the card, and times both, beside each
    kernel's bound (the least time the card could take) and, where one
    PyTorch call computes the same function, that call's time; K-EXTRACT
@@ -26,8 +28,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    K-XDEMOD-SPEC against their plain versions at the 96-station shapes,
    each also for 90 stations (a count the group size does not divide)
    from a start bin that makes a run wrap at the band's end inside a
-   group, and grouped against ungrouped;
-6. drives ``make_multi_station_step(extract_demod="spec")`` for 96
+   group, and grouped against ungrouped; K-XDEMOD's and K-XDEMOD-SPEC's
+   passes are also timed apart (``[kernel] ... split``);
+6. holds the kernels' discriminator (``atan2_fast``) against float64
+   ``atan2`` on 2^24 seeded points (all magnitudes, the axes, signed
+   zeros, subnormals), and feeds K-XDEMOD and K-XDEMOD-SPEC a band in
+   which two stations' bins are exactly zero: a dead station's quad and
+   kept bins must be exactly 0, the live stations within their bounds;
+7. drives ``make_multi_station_step(extract_demod="spec")`` for 96
    stations × 262 144 S/s (band 24M) over 5 chained chunks — launch
    counters, step and stage times, chunk 1 against the CPU, one real
    stereo station — and the ``"fused"`` and default modes at 96
@@ -36,7 +44,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``torch.profiler`` (device time per kernel, busy and idle share).
 
 The build fails the run if ``ptxas`` reports register spills for the
-demod pass of K-XDEMOD(-SPEC).
+demod pass of K-XDEMOD(-SPEC) or for K-FIR's kernel.
 
 Every phase raises on failure. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result. The
@@ -75,6 +83,7 @@ FIR_ABS_MAX = 1e-5    # K-FIR against float64
 # The bounds of tests/test_extract_demod_pallas.py (:46, :148).
 XDEMOD_ABS_MAX = 5e-5   # K-XDEMOD against float64
 XSPEC_REL_MAX = 3e-5    # K-XDEMOD-SPEC, max abs / max |ref|
+ATAN_ABS_MAX = 2e-6   # the discriminator against float64 atan2, rad
 E2E_ABS_MAX = 1e-4    # card against CPU, audio of chunk 1
 SNR_MIN_DB = 20.0     # per stereo tone, as the repository's verify drive
 
@@ -135,6 +144,63 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def time_min_median_ms(fn, reps: int = 50):
+    """Min and median of ``reps`` CUDA-event timings of ``fn()``."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in pairs]
+    return min(ms), statistics.median(ms)
+
+
+def kernel_times_ms(fn, reps: int = 10):
+    """Device time per call of each kernel that ``fn()`` launches, from
+    ``torch.profiler``: ``[(kernel name, ms)]`` in the order of launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, first = {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t0, t1 = ev.time_range.start, ev.time_range.end
+        total[ev.name] = total.get(ev.name, 0.0) + (t1 - t0)
+        first[ev.name] = min(first.get(ev.name, t0), t0)
+    if not total:
+        raise AssertionError("the profiler saw no device time")
+    return [(name, total[name] / reps / 1e3)
+            for name in sorted(total, key=first.get)]
+
+
+def report_split(what, fn, passes) -> None:
+    """Print the device time of each pass kernel of ``fn()`` (the passes
+    over the whole batch on one lane, so that no two overlap), named by
+    ``passes`` in the order of launch."""
+    times = [(n, ms) for n, ms in kernel_times_ms(fn) if "pass_kernel" in n]
+    if len(times) != len(passes):
+        raise AssertionError(f"{what}: {len(times)} pass kernels in the "
+                             f"trace, expected {passes}")
+    print(f"[kernel] {what} split (whole batch, one lane): " + ", ".join(
+        f"{name} {ms:.3f} ms" for name, (_, ms) in zip(passes, times)))
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -246,6 +312,13 @@ def check_kernels(device, gen) -> dict:
 
     crandn_ = functools.partial(crandn, gen, device)
     out = {}
+    # K-FIR at the de-emphasis shape before anything else has run: its
+    # time has varied between runs with what ran before it.
+    taps = deemphasis_taps(AUDIO)
+    x, hist = fir_case(torch.device(device), torch.Generator(
+        device=device).manual_seed(SEED + 2), 2 * N_STATIONS, AUDIO, taps)
+    fir_alone = time_min_median_ms(lambda: fir.fir_causal_rows(x, taps, hist))
+    del x, hist
     rows = crandn_(N_STATIONS, STATION)
     got = fft_rows.fft_pow2(rows)
     err = rel_l2(got, torch.fft.fft(rows.to(torch.complex128)))
@@ -334,14 +407,43 @@ def check_kernels(device, gen) -> dict:
                       spec, n // 2, c, m, s_norm, group=g, lanes=lanes))
     del spec, spec64, band
 
+    out["K-FIR"] = check_fir(device, gen, fir_alone)
+    return out
+
+
+def fir_case(device, gen, rows, n, taps):
+    import torch
+    x = torch.randn(rows, n, generator=gen, device=device)
+    hist = torch.randn(rows, len(taps) - 1, generator=gen, device=device)
+    return x, hist
+
+
+def fir_device_ms(fn) -> float:
+    """K-FIR's device time per call of ``fn()`` from ``torch.profiler``:
+    the kernel is shorter than the host takes to enqueue it, so CUDA
+    events around single calls time the host."""
+    (_, ms), = [(n, t) for n, t in kernel_times_ms(fn, reps=30)
+                if "fir_kernel" in n]
+    return ms
+
+
+def check_fir(device, gen, alone=None) -> dict:
+    """K-FIR against float64 at the de-emphasis shape (51 taps, both
+    stereo legs of 64 stations), at 129 taps (the band FIR's count) and on
+    a ragged length through a strided view; returns the de-emphasis
+    shape's numbers. ``alone`` is that shape's (min, median) time taken
+    before any other kernel ran."""
+    import torch
+    from scipy import signal
+    from radiocore_tpu_torch.kernels import fir
+    from radiocore_tpu_torch.ops.design import deemphasis_taps
+
     taps = deemphasis_taps(AUDIO)
-    x = torch.randn(2 * N_STATIONS, AUDIO, generator=gen, device=device)
-    hist = torch.randn(2 * N_STATIONS, len(taps) - 1, generator=gen,
-                       device=device)
+    x, hist = fir_case(device, gen, 2 * N_STATIONS, AUDIO, taps)
     got = fir.fir_causal_rows(x, taps, hist)
     ref = fir.fir_causal_plain(x.double(), taps, hist.double())
     err = max_abs(got, ref)
-    ms = time_ms(lambda: fir.fir_causal_rows(x, taps, hist))
+    ms = fir_device_ms(lambda: fir.fir_causal_rows(x, taps, hist))
     plain = time_ms(lambda: fir.fir_causal_plain(x, taps, hist))
     # The library call: one conv1d over the rows with their history in
     # front (float32; TF32 is off, see main), held to the same bound.
@@ -357,9 +459,56 @@ def check_kernels(device, gen) -> dict:
                   2.0 * len(taps) * x.numel())
     report("K-FIR 51 taps 128x49152 max_abs", err, FIR_ABS_MAX, ms, plain,
            least, library)
-    out["K-FIR"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, **least,
-                        library_ms=library)
-    return out
+    after = time_min_median_ms(lambda: fir.fir_causal_rows(x, taps, hist))
+    line = (f"[kernel] K-FIR 51 taps 128x49152 between CUDA events around "
+            f"one call (the host's enqueue bounds it), 50 runs after the FFT "
+            f"kernels: min {after[0]:.3f} ms, median {after[1]:.3f} ms")
+    if alone:
+        line += (f"; before any other kernel: min {alone[0]:.3f} ms, median "
+                 f"{alone[1]:.3f} ms")
+    print(line)
+    stats = dict(max_abs_err=err, ms=ms, plain_ms=plain, **least,
+                 library_ms=library)
+    del x, hist, got, ref, xp, conv
+
+    # 129 taps (the band FIR of bench.py's config 4), the same rows and
+    # one long row batch.
+    taps = signal.firwin(129, 0.45)
+    for rows, n in ((2 * N_STATIONS, AUDIO), (N_STATIONS // 2, STATION)):
+        x, hist = fir_case(device, gen, rows, n, taps)
+        got = fir.fir_causal_rows(x, taps, hist)
+        ref = fir.fir_causal_plain(x.double(), taps, hist.double())
+        report(f"K-FIR 129 taps {rows}x{n} max_abs", max_abs(got, ref),
+               FIR_ABS_MAX,
+               fir_device_ms(lambda: fir.fir_causal_rows(x, taps, hist)),
+               time_ms(lambda: fir.fir_causal_plain(x, taps, hist), reps=5),
+               bound(4 * (x.numel() + hist.numel() + got.numel()),
+                     2.0 * len(taps) * x.numel()))
+        del x, hist, got, ref
+
+    # A length that is no multiple of the tile or of 4, rows that are one
+    # leg of a (rows, 2, n) tensor (every other row off a 16-byte
+    # boundary), with and without history, and a long tap set.
+    n = 50_001
+    both = torch.randn(40, 2, n, generator=gen, device=device)
+    for taps, with_hist in ((deemphasis_taps(AUDIO), True),
+                            (deemphasis_taps(AUDIO), False),
+                            (signal.firwin(4096, 0.3), True)):
+        # (4096 taps: in-order float32 sums of that length hold the bound
+        # on samples of audio size, the view scaled by 1/4.)
+        x = both[:, 0, :] if len(taps) < 4096 else (0.25 * both)[:, 0, :]
+        hist = 0.25 * torch.randn(40, len(taps) - 1, generator=gen,
+                                  device=device) if with_hist else None
+        got = fir.fir_causal_rows(x, taps, hist)
+        ref = fir.fir_causal_plain(
+            x.double(), taps, hist.double() if with_hist else None)
+        err = max_abs(got, ref)
+        print(f"[kernel] K-FIR {len(taps)} taps 40x{n} strided view, "
+              f"history {with_hist} max_abs: {err:.3e} (bound "
+              f"{FIR_ABS_MAX:.0e})")
+        if not err <= FIR_ABS_MAX:
+            raise AssertionError(f"K-FIR on the strided ragged shape: {err}")
+    return stats
 
 
 def check_band_kernels(device, gen) -> dict:
@@ -506,7 +655,125 @@ def check_band_kernels(device, gen) -> dict:
     report_groups("K-XDEMOD-SPEC 96x2^18", device, c, m, 2,
                   lambda g, lanes: extract_demod.extract_demod_kernel(
                       spec, a0, c, m, gain, keep, group=g, lanes=lanes))
+    report_split("K-XDEMOD 96x2^18",
+                 lambda: extract_demod.extract_demod_kernel(
+                     spec, a0, c, m, gain, None, group=c, lanes=1),
+                 ("first pass", "demod pass"))
+    report_split("K-XDEMOD-SPEC 96x2^18",
+                 lambda: extract_demod.extract_demod_kernel(
+                     spec, a0, c, m, gain, keep, group=c, lanes=1),
+                 ("first pass", "demod pass", "keep pass"))
     return out
+
+
+def check_discriminator(device, gen) -> None:
+    """The kernels' discriminator against float64 ``atan2`` on 2^24
+    points: magnitudes from 1e-30 to 1e30 at any angle, component ratios
+    up to 1e8 either way, subnormals, the axes and the origin with either
+    sign of zero. Its conventions: 0 at the origin, a zero ``y`` counts
+    as +0."""
+    import torch
+    from radiocore_tpu_torch.kernels import extract_demod
+    n = 1 << 22
+    f64 = dict(dtype=torch.float64, device=device)
+
+    def rand(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, **f64)
+
+    mag, th = 10.0 ** rand(-30.0, 30.0), rand(-math.pi, math.pi)
+    x1, y1 = mag * torch.cos(th), mag * torch.sin(th)
+    x2 = torch.randn(n, generator=gen, **f64)
+    y2 = x2 * 10.0 ** rand(-8.0, 8.0)
+    # Subnormal float32 magnitudes (below 1.18e-38) and their neighbours.
+    sub, th = 10.0 ** rand(-45.0, -37.0), rand(-math.pi, math.pi)
+    x3, y3 = sub * torch.cos(th), sub * torch.sin(th)
+    # The axes and the origin: a quarter of these points have x = +-0, a
+    # quarter y = +-0, a sixteenth both.
+    x4 = torch.randn(n, generator=gen, **f64) * 10.0 ** rand(-20.0, 20.0)
+    y4 = torch.randn(n, generator=gen, **f64) * 10.0 ** rand(-20.0, 20.0)
+    which = torch.randint(0, 16, (n,), generator=gen, device=device)
+    x4 = torch.where(which % 4 == 0, torch.copysign(torch.zeros_like(x4), x4),
+                     x4)
+    y4 = torch.where(which // 4 == 0,
+                     torch.copysign(torch.zeros_like(y4), y4), y4)
+    x = torch.cat([x1, x2, x3, x4]).float()
+    y = torch.cat([y1, y2, y3, y4]).float()
+    got = extract_demod.atan2_fast(y, x)
+    # float64 atan2 of the float32 inputs, a zero y taken as +0 (the
+    # origin then gives 0 for x = +0 and pi for x = -0: set it to 0).
+    y64 = torch.where(y == 0, torch.zeros_like(y), y).double()
+    ref = torch.atan2(y64, x.double())
+    origin = (x == 0) & (y == 0)
+    ref = torch.where(origin, torch.zeros_like(ref), ref)
+    err = max_abs(got, ref)
+    at_origin = got[origin]
+    print(f"[kernel] discriminator atan2_fast on {x.numel()} points "
+          f"({int(origin.sum())} at the origin, "
+          f"{int(((x == 0) ^ (y == 0)).sum())} on an axis) against float64 "
+          f"atan2 max_abs: {err:.3e} rad (bound {ATAN_ABS_MAX:.0e})")
+    if not err <= ATAN_ABS_MAX:
+        raise AssertionError(f"atan2_fast: error {err} rad")
+    if not bool((at_origin == 0).all()):
+        raise AssertionError("atan2_fast: not exactly 0 at the origin")
+
+
+def check_dead_stations(device, gen) -> None:
+    """K-XDEMOD and K-XDEMOD-SPEC on a 96-station FM band in which the
+    bins of two stations (one in the middle, the last) are exactly zero:
+    a dead station's quad and kept bins must be exactly 0, as the plain
+    versions and the JAX package give them, and the live stations stay
+    within their bounds."""
+    import torch
+    from radiocore_tpu_torch.kernels import extract_demod
+    from radiocore_tpu_torch.models.wbfm import make_wbfm_step
+    from radiocore_tpu_torch.ops.channelize import uniform_extraction_start
+
+    c, m, n = N_STATIONS_96, STATION, N_BAND_96
+    dead = [c // 2, c - 1]
+    live = [i for i in range(c) if i not in dead]
+    spec = torch.fft.fft(fm_band(gen, c, m, device))
+    a0 = uniform_extraction_start(n, tuple(-o for o in offsets(c, m)), m)
+    for i in dead:
+        # The station's run and the bin after it, which its Nyquist fold
+        # reads.
+        bins = (a0 + i * m + torch.arange(m + 1, device=device)) % n
+        spec[bins] = 0
+    spec64 = spec.to(torch.complex128)
+    keep = int(make_wbfm_step(m, AUDIO, mode="fast_spec").needed_bins)
+    failures = []
+
+    got = extract_demod.extract_demod_rows(spec, a0, c, m)
+    ref = extract_demod.extract_demod_rows_plain(spec64, a0, c, m)
+    if bool((ref[dead] != 0).any()):
+        raise AssertionError("the plain quad of a dead station is not 0")
+    err = max_abs(got[live], ref[live])
+    lo, hi = float(got[dead].min()), float(got[dead].max())
+    print(f"[dead] K-XDEMOD 96x2^18, stations {dead} zeroed: their quad in "
+          f"[{lo:g}, {hi:g}] (plain: 0), live stations max_abs {err:.3e} "
+          f"(bound {XDEMOD_ABS_MAX:.0e})")
+    if lo != 0 or hi != 0:
+        failures.append(f"K-XDEMOD: a dead station's quad in [{lo}, {hi}]")
+    if not err <= XDEMOD_ABS_MAX:
+        failures.append(f"K-XDEMOD: live stations off by {err}")
+
+    got = extract_demod.extract_demod_spec_rows(spec, a0, c, m,
+                                                keep_bins=keep)
+    ref = extract_demod.extract_demod_spec_rows_plain(spec64, a0, c, m,
+                                                      keep_bins=keep)
+    if bool((ref[dead] != 0).any()):
+        raise AssertionError("the plain bins of a dead station are not 0")
+    err = max_abs(got[live], ref[live]) / float(ref.abs().max())
+    worst = float(got[dead].abs().max())
+    print(f"[dead] K-XDEMOD-SPEC 96x2^18 keep {keep}, stations {dead} "
+          f"zeroed: their bins max |.| {worst:g} (plain: 0; largest live "
+          f"bin {float(ref.abs().max()):g}), live stations "
+          f"max_abs/max|ref| {err:.3e} (bound {XSPEC_REL_MAX:.0e})")
+    if worst != 0:
+        failures.append(f"K-XDEMOD-SPEC: a dead station's bins up to {worst}")
+    if not err <= XSPEC_REL_MAX:
+        failures.append(f"K-XDEMOD-SPEC: live stations off by {err}")
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def path_counters(c: int, extract_demod: str) -> dict:
@@ -628,10 +895,11 @@ def profile_step(what, step, band, state, steps: int = 10) -> None:
 
 def check_spills(log: str) -> None:
     """Print what ``ptxas -v`` reported as spilled for every pass kernel
-    (``*_pass_kernel``) and raise if an instantiation of the demod pass
-    spills, or none of them appears in the log."""
+    (``*_pass_kernel``) and raise if an instantiation of the demod pass or
+    K-FIR's kernel spills, or either does not appear in the log."""
     import re
-    entry, seen = None, 0
+    held = {"demod_pass_kernel": 0, "fir_kernel": 0}
+    entry = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
@@ -639,22 +907,22 @@ def check_spills(log: str) -> None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if not (m and entry and "pass_kernel" in entry):
+        if not (m and entry):
             continue
         spilled = int(m.group(1)) or int(m.group(2))
-        if "demod_pass_kernel" in entry:
-            seen += 1
+        name = next((k for k in held if k in entry), None)
+        if name:
+            held[name] += 1
             if spilled:
                 raise AssertionError(f"{entry} spills registers: "
                                      f"{line.strip()}")
-        elif spilled:
+        elif spilled and "pass_kernel" in entry:
             print(f"[build] spills in {entry}: {line.strip()}")
         entry = None
-    if not seen:
-        raise AssertionError("no ptxas line for demod_pass_kernel in the "
-                             "build log")
-    print(f"[build] demod_pass_kernel: {seen} instantiations, no register "
-          "spills")
+    for name, seen in held.items():
+        if not seen:
+            raise AssertionError(f"no ptxas line for {name} in the build log")
+        print(f"[build] {name}: {seen} instantiations, no register spills")
 
 
 def against_cpu(what, c, band1, audio1, extract_demod="off") -> float:
@@ -773,7 +1041,12 @@ def main() -> int:
     kstats.update(check_band_kernels(device, gen))
     lap("kernels at the 96-station shapes")
 
-    # Phase 6: the 96-station paths, the spec path first.
+    # Phase 6: the discriminator alone, and dead stations.
+    check_discriminator(device, gen)
+    check_dead_stations(device, gen)
+    lap("discriminator and dead stations")
+
+    # Phase 7: the 96-station paths, the spec path first.
     c = N_STATIONS_96
     for xd, chunks in (("spec", CHUNKS), ("fused", CHUNKS_MODES),
                        ("off", CHUNKS_MODES)):

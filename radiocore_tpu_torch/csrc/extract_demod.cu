@@ -28,10 +28,16 @@
 // The t-1 neighbour: x~[t-1] is row s-1 at the same k, and for s = 0 it is
 // row n1-1 at k-1. A block holds P rows s0..s0+P-1 and one halo row in
 // front, row (s0-1) mod n1, transformed with them (1/P extra work), so
-// every neighbour is in shared memory. For SPEC each thread takes the
-// demod of its own 16 points against the row before it straight into the
-// registers the forward transform starts from; the quad alone goes through
-// a shared-memory sweep, so that its store has s fastest (coalesced).
+// every neighbour is in shared memory. After its transform a thread holds
+// its row's x~ at 16 values of k in registers. It writes them to its row
+// once (the row after it reads them) and demodulates them against the row
+// before it at the same k: one shared load per point. For SPEC the result
+// goes straight into the registers the forward transform starts from. The
+// quad has s fastest in memory (runs of P floats at a stride of n1), so
+// its floats are staged through shared memory, row by row as the threads
+// hold them (consecutive k: no bank conflict), and leave as 16-byte
+// evict-first stores, four rows of one k per thread; the rows' pitch
+// (quad_pitch) spreads the P/4 row groups a warp reads over the banks.
 //
 // What bounds it on an H100: by the bytes it must move, device memory:
 // per station point 8 B of spectrum read and 4 B of quad written (302 MB
@@ -58,6 +64,11 @@
 // blocks per SM: 72 registers, no spill), where a bound of 1024 threads
 // kept it to 64 registers and spilled. It is built with n2 = 512 as a
 // constant (fft_common.cuh kFastLg) and for any n2.
+//
+// The discriminator is atan2_fast below, not atan2f: one division and an
+// odd polynomial of degree 13 on [0, 1], no special cases but the origin,
+// which gives 0 (a dead station's product is (-0, -0), where C's atan2f
+// gives -pi: its audio would sit at -1).
 #include "fft_common.cuh"
 
 // In rc, not an unnamed namespace: nvcc's host stubs cannot name a kernel
@@ -76,13 +87,41 @@ struct Demod {
   float gain;
 };
 
+// Four-quadrant arctangent, within 2e-6 rad of atan2 for every finite
+// input (measured on the card against float64: PERF.md): z = min/max of
+// the magnitudes in [0, 1] by one division, atan(z) = z + z^3 Q(z^2) with
+// Q the degree-5 minimax fit on [0, 1] (6e-7 with the division's
+// rounding), then the octant and quadrant by selects, so a warp does not
+// diverge. Conventions: 0 at the origin whatever the zeros' signs; a zero
+// y counts as +0 (x > 0 gives 0, x < 0 gives pi), as the JAX package's
+// atan2_poly has it. kernels/extract_demod.py atan2_fast_model mirrors it
+// coefficient for coefficient.
+__device__ __forceinline__ float atan2_fast(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float hi = fmaxf(ax, ay), lo = fminf(ax, ay);
+  float z = lo / hi;
+  z = hi == 0.f ? 0.f : z;  // the origin: 0/0
+  const float s = z * z;
+  float q = 0.00738483341f;
+  q = fmaf(q, s, -0.0355649926f);
+  q = fmaf(q, s, 0.0822363347f);
+  q = fmaf(q, s, -0.134035528f);
+  q = fmaf(q, s, 0.198633403f);
+  q = fmaf(q, s, -0.333255589f);
+  float r = fmaf(q, z * s, z);
+  r = ay > ax ? 1.57079632679489662f - r : r;
+  r = x < 0.f ? 3.14159265358979324f - r : r;
+  return y < 0.f ? -r : r;
+}
+
 // gain * atan2 of -cur * conj(prv): the FM discriminator of neighbours
 // x~[t], x~[t-1] (the minus sign is what is left of the (-1)^t flips).
+// Exactly 0 where either is 0 (a dead station).
 __device__ __forceinline__ float discriminate(float2 cur, float2 prv,
                                               float gain) {
   const float pr = -(cur.x * prv.x + cur.y * prv.y);
   const float pi = -(cur.y * prv.x - cur.x * prv.y);
-  return gain * atan2f(pi, pr);
+  return gain * atan2_fast(pi, pr);
 }
 
 // The demod pass's block: (P + 1)*L/16 threads at most kDemodThreads
@@ -90,6 +129,13 @@ __device__ __forceinline__ float discriminate(float2 cur, float2 prv,
 // the constant-length build (72 registers) and two for the other, which
 // needs more.
 constexpr int kDemodThreads = 288;
+
+// Floats between the rows of the staged quad: a thread of the store reads
+// rows 4j .. 4j + 3 at one k, lane = (k, j) with j fastest, so the P/4 row
+// groups of a warp must start 32/(P/4) banks apart: 4*pitch = 128/P mod 32.
+__host__ __device__ constexpr int quad_pitch(int L, int P) {
+  return L + (P >= 4 && P <= 32 ? 32 / P : 1);
+}
 
 template <bool SPEC, int LG>
 __global__ void __launch_bounds__(kDemodThreads, LG ? 3 : 2)
@@ -125,24 +171,66 @@ __global__ void __launch_bounds__(kDemodThreads, LG ? 3 : 2)
   for (int m = 0; m < kVals; ++m) row[pad(t + m * T)] = v[m];
   __syncthreads();
 
-  // Row s = s0 + p is buf row p + 1; its neighbour row is buf row p (the
-  // halo for p = 0), except for s = 0, whose neighbour is the halo (row
-  // n1 - 1) one element back. t = 0 (s = k = 0) gives 0.
-  const int npts = P << lg;
+  // Row s = s0 + r - 1 (buffer row r > 0) has its neighbour x~[t - 1] in
+  // buffer row r - 1 at the same k, except for s = 0, whose neighbour is
+  // the halo (row n1 - 1) one element back. t = 0 (s = k = 0) gives 0.
+  const bool first = (sr == 0) && r > 0;  // s = 0
+  const float2* prow = buf + (r > 0 ? r - 1 : 0) * pitch;
   if (!SPEC) {
-    float* qout = (float*)out + b1 * d.ob1;
-    for (int idx = threadIdx.x; idx < npts; idx += blockDim.x) {
-      const int p = idx & (P - 1);  // s fastest: neighbouring t, coalesced
-      const int k = idx >> d.lgP;
-      const int s = s0 + p;
-      float q = 0.f;
-      if (s != 0 || k != 0) {
-        const float2 cur = buf[(p + 1) * pitch + pad(k)];
-        const float2 prv =
-            (s != 0) ? buf[p * pitch + pad(k)] : buf[pad(k - 1)];
-        q = discriminate(cur, prv, d.gain);
+    // Each thread demodulates its own points (still in v); the halo row's
+    // threads have none. The quad is staged where the transformed rows
+    // were, P rows of quad_pitch floats: a block that needs no shared
+    // memory beyond its rows leaves room on the SM for the other lane's
+    // first-pass blocks, which measured faster than a buffer of its own,
+    // though that needs one barrier less.
+    const int qp = quad_pitch(1 << lg, P);
+    float* qs = reinterpret_cast<float*>(buf);
+    float q[kVals];
+    if (r > 0) {
+#pragma unroll
+      for (int m = 0; m < kVals; ++m) {
+        const int k = t + m * T;
+        q[m] = 0.f;
+        if (!(first && k == 0)) {
+          q[m] = discriminate(v[m], prow[pad(first ? k - 1 : k)], d.gain);
+        }
       }
-      st_once(qout + s * d.os + (long long)k * d.ok, q);
+    }
+    // Every row has read its neighbour: the quad takes the rows' place.
+    __syncthreads();
+    if (r > 0) {
+      float* qrow = qs + (r - 1) * qp;
+#pragma unroll
+      for (int m = 0; m < kVals; ++m) qrow[t + m * T] = q[m];
+    }
+    __syncthreads();
+    if (r == 0) return;
+    // The store: (s, k) at s*os + k*ok, s fastest. The P*L floats over the
+    // P*L/16 threads that are left: four 16-byte stores each where a run of
+    // four rows is one aligned access, else 16 scalar ones.
+    const int tq = threadIdx.x - T;
+    float* qout = (float*)out + b1 * d.ob1 + s0 * d.os;
+    if (P >= 4 && d.os == 1 && (d.ok & 3) == 0 && aligned16(qout)) {
+      const int lgJ = d.lgP - 2;
+      const int j = tq & ((1 << lgJ) - 1);
+      const int dk = (P * T) >> lgJ;
+      const float* q0 = qs + 4 * j * qp;
+      float* dst = qout + 4 * j;
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int k = (tq >> lgJ) + it * dk;
+        st_once(reinterpret_cast<float4*>(dst + (long long)k * d.ok),
+                make_float4(q0[k], q0[qp + k], q0[2 * qp + k],
+                            q0[3 * qp + k]));
+      }
+      return;
+    }
+#pragma unroll
+    for (int it = 0; it < kVals; ++it) {
+      const int idx = tq + it * P * T;
+      const int p = idx & (P - 1);
+      const int k = idx >> d.lgP;
+      st_once(qout + p * d.os + (long long)k * d.ok, qs[p * qp + k]);
     }
     return;
   }
@@ -151,18 +239,14 @@ __global__ void __launch_bounds__(kDemodThreads, LG ? 3 : 2)
   // row before, and the forward n2-point DFT of the quad row (real input)
   // starts from those registers. The halo row's threads transform zeros to
   // keep the barriers uniform.
-  {
-    const bool first = (sr == 0);  // s = 0: the neighbour is one back
-    const float2* prow = buf + (r > 0 ? r - 1 : 0) * pitch;
 #pragma unroll
-    for (int m = 0; m < kVals; ++m) {
-      const int k = t + m * T;
-      float q = 0.f;
-      if (r > 0 && !(first && k == 0)) {
-        q = discriminate(v[m], prow[pad(first ? k - 1 : k)], d.gain);
-      }
-      v[m] = make_float2(q, 0.f);
+  for (int m = 0; m < kVals; ++m) {
+    const int k = t + m * T;
+    float q = 0.f;
+    if (r > 0 && !(first && k == 0)) {
+      q = discriminate(v[m], prow[pad(first ? k - 1 : k)], d.gain);
     }
+    v[m] = make_float2(q, 0.f);
   }
   // Every row has read its neighbour before any row's buffer is reused.
   __syncthreads();
@@ -197,7 +281,7 @@ __global__ void __launch_bounds__(kDemodThreads, LG ? 3 : 2)
     }
     return;
   }
-  for (int idx = threadIdx.x; idx < npts; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < (P << lg); idx += blockDim.x) {
     const int p = idx & (P - 1);
     const int k = idx >> d.lgP;
     const int s = s0 + p;
@@ -209,6 +293,7 @@ __global__ void __launch_bounds__(kDemodThreads, LG ? 3 : 2)
 
 inline int demod_threads(const Demod& d) { return (d.P + 1) * d.L / kVals; }
 
+// P + 1 transformed rows; the quad's P staged rows reuse their place.
 inline size_t demod_smem(const Demod& d) {
   return sizeof(float2) * (size_t)(d.P + 1) * row_pitch(d.L);
 }
@@ -265,7 +350,30 @@ inline int demod_from_record(Demod* out, const long long* r, bool spec,
   return 0;
 }
 
+// atan2_fast on its own, one thread per point: what holds the
+// discriminator against float64 on the card.
+__global__ void atan2_fast_kernel(const float* __restrict__ y,
+                                  const float* __restrict__ x,
+                                  float* __restrict__ out, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = atan2_fast(y[i], x[i]);
+}
+
 }  // namespace rc
+
+// out[i] = atan2_fast(y[i], x[i]) for n float32 points. Returns a
+// cudaError_t.
+extern "C" int rc_atan2_fast(const void* y, const void* x, void* out,
+                             long long n, void* stream) {
+  constexpr int kThreads = 256;
+  if (n < 1 || (n + kThreads - 1) / kThreads > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  rc::atan2_fast_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
+                          0, (cudaStream_t)stream>>>(
+      (const float*)y, (const float*)x, (float*)out, n);
+  return (int)cudaGetLastError();
+}
 
 // K-XDEMOD (keep = 0): spectrum (n) -> out (c, m) float32 quad; and
 // K-XDEMOD-SPEC (keep > 0): -> out (c, keep) complex64. `records` holds the

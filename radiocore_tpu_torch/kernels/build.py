@@ -127,6 +127,7 @@ _SIGNATURES = {
                         _P],
     "rc_extract_demod": [_P, _P, _P, _P, _P, _L, _L, _I, _L, _L, _L, _F, _L,
                          _P, _P],
+    "rc_atan2_fast": [_P, _P, _P, _L, _P],
     "rc_fir": [_P, _L, _P, _L, _P, _P, _L, _L, _I, _P],
     "rc_rfft_untangle": [_P, _P, _L, _I, _P],
     "rc_irfft_tangle": [_P, _P, _L, _I, _P],

@@ -11,8 +11,12 @@ The plan (:func:`plan`, ``csrc/extract_demod.cu``) splits ``m = n1·n2``:
 K-EXTRACT's first pass (extraction load, n1-point DFTs, twiddle), then
 the demod pass — the n2-point DFT of each row ``s`` with the demod in its
 epilogue, each block carrying one halo row so that ``x[t−1]`` is in
-shared memory — and, for SPEC, a keep pass that finishes the forward
-transform and writes bins ``< keep`` only. K-XDEMOD's passes run per
+shared memory; every thread demodulates the 16 points it holds against
+the row before it, and the quad leaves through a staged 16-byte store —
+and, for SPEC, a keep pass that finishes the forward transform and
+writes bins ``< keep`` only. The discriminator is the kernel's own
+``atan2_fast`` (:func:`atan2_fast_model`): 0 at the origin, so a dead
+station gives silence as in the JAX package. K-XDEMOD's passes run per
 group of G stations over lanes (``extract.grouped_schedule``), as
 K-EXTRACT's; K-XDEMOD-SPEC's run over the whole batch, which measured
 faster (:func:`extract_demod_kernel`).
@@ -29,6 +33,7 @@ import functools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from radiocore_tpu_torch.kernels import extract, fft_rows
@@ -41,9 +46,14 @@ LANES = 128     # the JAX kernel's lane digit, for its A == C rule
 # The demod pass's block: (P + 1)·n2/16 threads, P rows and a halo row.
 # csrc/extract_demod.cu builds it for at most 288 threads at three blocks
 # per SM: P = 8 at n2 = 512, which measured faster on an H100 than P = 16
-# (544 threads at two blocks per SM; PERF.md).
+# (544 threads; PERF.md), for K-XDEMOD as for K-XDEMOD-SPEC.
 DEMOD_MAX_THREADS = 288     # csrc/extract_demod.cu kDemodThreads
 DEMOD_ROWS = 8              # rows per block at most (P)
+
+# csrc/extract_demod.cu atan2_fast: atan(z) = z + z³·Q(z²) on [0, 1], Q's
+# coefficients from the highest power down.
+ATAN_Q = (0.00738483341, -0.0355649926, 0.0822363347, -0.134035528,
+          0.198633403, -0.333255589)
 
 launches = LaunchCounter()        # K-XDEMOD
 spec_launches = LaunchCounter()   # K-XDEMOD-SPEC
@@ -93,6 +103,52 @@ def demod_threads(rows: int, n2: int) -> int:
     return (rows + 1) * n2 // fft_rows.POINTS_PER_THREAD
 
 
+def quad_pitch(n2: int, rows: int) -> int:
+    """Floats between the rows of K-XDEMOD's staged quad
+    (``csrc/extract_demod.cu`` ``quad_pitch``): the store reads four rows
+    at one k per thread, and the pitch puts a warp's ``rows/4`` row
+    groups ``32/(rows/4)`` banks apart."""
+    return n2 + (32 // rows if 4 <= rows <= 32 else 1)
+
+
+def demod_smem_bytes(rows: int, n2: int) -> int:
+    """Shared memory of a demod block: ``rows + 1`` transformed rows of
+    complex64 at ``fft_common.cuh``'s ``row_pitch``. K-XDEMOD's staged
+    quad (``rows`` float32 rows at :func:`quad_pitch`) takes their place
+    once every row has read its neighbour."""
+    row_pitch = n2 + n2 // 16 + 1
+    assert 4 * rows * quad_pitch(n2, rows) <= 8 * (rows + 1) * row_pitch
+    return 8 * (rows + 1) * row_pitch
+
+
+def atan2_fast_model(y, x) -> np.ndarray:
+    """numpy float32 model of the kernels' discriminator
+    (``csrc/extract_demod.cu`` ``atan2_fast``), operation for operation
+    (each FMA rounded once): z = min/max of the magnitudes, the odd
+    polynomial :data:`ATAN_Q`, octant and quadrant by selects. 0 at the
+    origin; a zero ``y`` counts as +0."""
+    f32 = np.float32
+    y = np.asarray(y, f32)
+    x = np.asarray(x, f32)
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b.astype(np.float64)
+                + np.float64(c)).astype(f32)
+
+    ax, ay = np.abs(x), np.abs(y)
+    hi, lo = np.maximum(ax, ay), np.minimum(ax, ay)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        z = np.where(hi == 0, f32(0), lo / hi).astype(f32)
+    s = z * z
+    q = np.full_like(z, f32(ATAN_Q[0]))
+    for coef in ATAN_Q[1:]:
+        q = fma(q, s, f32(coef))
+    r = fma(q, z * s, z)
+    r = np.where(ay > ax, f32(np.pi / 2) - r, r)
+    r = np.where(x < 0, f32(np.pi) - r, r)
+    return np.where(y < 0, -r, r).astype(f32)
+
+
 @functools.lru_cache(maxsize=32)
 def plan(m: int, c: int, keep: Optional[int] = None) -> DemodPlan:
     """Passes for ``c`` stations of ``m`` points; ``keep`` (SPEC) is the
@@ -120,6 +176,27 @@ def plan(m: int, c: int, keep: Optional[int] = None) -> DemodPlan:
     last = Pass(n1, group(n1, n2), n2, 1, c, 0, m, n1, 1, 0, keep, 1, n2, 0,
                 "t", "y", keep=keep)
     return DemodPlan(first, demod, last)
+
+
+def atan2_fast(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The kernels' discriminator on its own, elementwise on float32
+    tensors of one shape: ``csrc/extract_demod.cu``'s ``atan2_fast`` on
+    CUDA tensors, :func:`atan2_fast_model` on CPU ones."""
+    if y.dtype != torch.float32 or x.dtype != torch.float32 \
+            or y.shape != x.shape or y.device != x.device:
+        raise ValueError("atan2_fast: two float32 tensors of one shape on "
+                         "one device")
+    if not _use_kernel(y):
+        return torch.from_numpy(atan2_fast_model(y.numpy(), x.numpy()))
+    from radiocore_tpu_torch.kernels import build
+    y, x = y.contiguous(), x.contiguous()
+    out = torch.empty_like(y)
+    if y.numel():
+        err = build.library().rc_atan2_fast(
+            y.data_ptr(), x.data_ptr(), out.data_ptr(), y.numel(),
+            torch.cuda.current_stream().cuda_stream)
+        build.check(err, f"rc_atan2_fast(n={y.numel()})")
+    return out
 
 
 def _check(spectrum: torch.Tensor, c: int, m: int, what: str, ok) -> int:

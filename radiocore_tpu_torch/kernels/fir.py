@@ -5,7 +5,11 @@ Counterpart of ``radiocore_tpu/kernels/fir_pallas.py``
 (``fir_causal_pallas``): ``y[n] = Σ_k taps[k]·x[n−k]`` along the last
 axis, with ``history`` as the ``T−1`` samples before ``x`` (zeros when
 None). The kernel (``csrc/fir.cu``) sums in float32 FMAs, with no TF32
-and no tensor cores.
+and no tensor cores: each thread computes :data:`OUTPUTS_PER_THREAD`
+consecutive outputs over a window of ``x`` that it keeps in registers,
+the taps going by in chunks of :data:`TAP_CHUNK`; a block stages
+:data:`TILE` samples of a row and a halo of :func:`staged_chunks` whole
+chunks in shared memory, laid out by :func:`skew`.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs
 :func:`fir_causal_plain`.
@@ -22,6 +26,11 @@ import torch
 from radiocore_tpu_torch.kernels.fft_rows import LaunchCounter
 
 MAX_TAPS = 4096
+# The geometry of csrc/fir.cu (kR, kC, kThreads, kTile).
+OUTPUTS_PER_THREAD = 8
+TAP_CHUNK = 8
+THREADS = 256
+TILE = THREADS * OUTPUTS_PER_THREAD
 
 launches = LaunchCounter()
 
@@ -42,6 +51,25 @@ def fir_causal_plain(x: torch.Tensor, taps,
     for k in range(t):
         y += tp[k] * xp[..., t - 1 - k:t - 1 - k + n]
     return y
+
+
+def staged_chunks(num_taps: int) -> int:
+    """Chunks of :data:`TAP_CHUNK` that cover the taps (zero padded) and,
+    as samples, the halo staged in front of a tile."""
+    return -(-num_taps // TAP_CHUNK)
+
+
+def skew(i: int) -> int:
+    """Shared-memory position of sample ``i`` of a staged tile: 4 floats
+    of padding after every :data:`OUTPUTS_PER_THREAD` samples, so that the
+    16-byte loads of a quarter-warp fall on distinct banks."""
+    return i + (i // OUTPUTS_PER_THREAD) * 4
+
+
+def smem_bytes(num_taps: int) -> int:
+    """Dynamic shared memory of a block: padded taps and skewed tile."""
+    halo = staged_chunks(num_taps) * TAP_CHUNK
+    return 4 * (halo + skew(halo + TILE))
 
 
 @functools.lru_cache(maxsize=32)

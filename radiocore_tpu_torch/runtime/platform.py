@@ -16,8 +16,13 @@ def has_cuda() -> bool:
 
 
 def default_device() -> torch.device:
-    """The first CUDA device when there is one, else the CPU."""
-    return torch.device("cuda", 0) if has_cuda() else torch.device("cpu")
+    """The first CUDA device. Without one it raises: the port's entry
+    points run on a card unless the caller names the CPU."""
+    if not has_cuda():
+        raise RuntimeError(
+            "radiocore_tpu_torch: no CUDA device (torch.cuda.is_available() "
+            "is False); pass device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
 
 
 def nvidia_smi_name_power() -> Optional[str]:

@@ -118,33 +118,71 @@ def test_rejects_and_no_kernel_off_cuda():
     assert (xd.launches.count, xd.spec_launches.count) == before
 
 
-def demod_model(p, src, gain, spec):
+def atan2_origin0(y, x):
+    """float64 ``arctan2`` with the kernels' convention at the origin:
+    0 whatever the zeros' signs."""
+    return np.where((y == 0) & (x == 0), 0.0, np.arctan2(y, x))
+
+
+def demod_model(p, src, gain, spec, atan2=atan2_origin0, out_offset=0):
     """numpy model of csrc/extract_demod.cu's demod pass: per station b1
-    and block s0, the rows [(s0-1) mod S, s0, ..., s0+P-1] (halo first)
-    are backward-transformed; row s's neighbour x[t-1] is the row before
-    at the same k, and for s = 0 the halo (row S-1) at k-1; t = 0 gives 0.
-    SPEC then takes the forward DFT over k and the twiddle W_m^{s*k}."""
+    and block s0, the buffer rows [(s0-1) mod S, s0, ..., s0+P-1] (halo
+    first) are backward-transformed. The threads of buffer row r > 0 hold
+    its points and demodulate them against buffer row r - 1 at the same k
+    (for s = 0: the halo, row S-1, at k-1; t = 0 gives 0). SPEC then takes
+    the forward DFT over k and the twiddle W_m^{s*k}, s fastest in the
+    scratch. The quad is staged row by row at ``quad_pitch`` floats and
+    leaves as the kernel stores it: thread tq of the P*L/16 that are left
+    takes rows 4j .. 4j+3 at one k, four times (16-byte stores, where P
+    >= 4, the run is contiguous and 16-byte aligned: ``out_offset`` is
+    the result's offset in floats from such a boundary), or 16 single
+    floats with s fastest."""
+    from radiocore_tpu_torch.kernels import extract_demod as xd
     L, P, S = p.L, p.P, p.S
-    out = np.zeros(p.B1 * p.ib1, np.complex128 if spec else np.float64)
+    T = L // 16
+    out = np.full(p.B1 * p.ib1, np.nan, np.complex128 if spec else np.float64)
     k = np.arange(L)
     for b1 in range(p.B1):
         for s0 in range(0, S, P):
             rows = np.array([(s0 - 1) % S] + list(range(s0, s0 + P)))
             v = np.fft.ifft(src[b1 * p.ib1 + rows[:, None] * p.is_
                                 + k[None, :] * p.ij], axis=-1) * L
-            cur, prv = v[1:], v[:-1].copy()
-            if s0 == 0:
-                prv[0] = np.roll(v[0], 1)
-            prod = -(cur * np.conj(prv))
-            q = gain * np.arctan2(prod.imag, prod.real)
-            if s0 == 0:
-                q[0, 0] = 0.0
+            q = np.zeros((P, L))
+            for r in range(1, P + 1):
+                first = rows[r] == 0
+                prv = np.roll(v[r - 1], 1) if first else v[r - 1]
+                prod = -(v[r] * np.conj(prv))
+                q[r - 1] = gain * atan2(prod.imag, prod.real)
+                if first:
+                    q[r - 1, 0] = 0.0
             s = s0 + np.arange(P)
             if spec:
                 q = np.fft.fft(q, axis=-1) * np.exp(
                     -2j * np.pi * ((s[:, None] * k[None, :]) % p.tw_n)
                     / p.tw_n)
-            out[b1 * p.ob1 + s[:, None] * p.os + k[None, :] * p.ok] = q
+                out[b1 * p.ob1 + s[:, None] * p.os + k[None, :] * p.ok] = q
+                continue
+            qp = xd.quad_pitch(L, P)
+            qs = np.full(P * qp, np.nan)
+            for r in range(P):
+                qs[r * qp + k] = q[r]
+            base = b1 * p.ob1 + s0 * p.os
+            tq = np.arange(P * T)
+            if (P >= 4 and p.os == 1 and p.ok % 4 == 0
+                    and (out_offset + base) % 4 == 0):
+                per_k = P // 4
+                j, kk = tq % per_k, tq // per_k
+                for it in range(4):
+                    kq = kk + it * (P * T // per_k)
+                    for i in range(4):
+                        out[base + 4 * j + i + kq * p.ok] = qs[
+                            (4 * j + i) * qp + kq]
+            else:
+                for it in range(16):
+                    idx = tq + it * P * T
+                    pp, kq = idx % P, idx // P
+                    out[base + pp * p.os + kq * p.ok] = qs[pp * qp + kq]
+    assert not np.isnan(out[:p.B1 * p.ib1]).any()
     return out
 
 
@@ -286,9 +324,20 @@ def test_demod_block_within_kernel_limits(lg_m):
     assert threads == (p + 1) * n2 // 16 <= xd.DEMOD_MAX_THREADS == 288
     if m == 1 << 18:
         assert (p, threads) == (8, 288)
-    smem = 8 * (p + 1) * (n2 + n2 // 16 + 1)      # row_pitch(n2) points
+    # P + 1 rows of row_pitch(n2) points; the quad's P staged rows fit in
+    # their place.
+    smem = xd.demod_smem_bytes(p, n2)
+    assert smem == 8 * (p + 1) * (n2 + n2 // 16 + 1)
+    assert 4 * p * xd.quad_pitch(n2, p) <= smem
     assert 3 * (smem + 1024) <= 227 * 1024
     assert 16 <= n2 <= 512 and pl.first.L * n2 == m
+    # The staged quad's pitch: the P/4 row groups that a warp of the store
+    # reads start 32/(P/4) banks apart, so its 32 lanes hit 32 banks.
+    if p >= 4:
+        per_k = p // 4
+        banks = {(4 * (lane % per_k) * xd.quad_pitch(n2, p) + lane // per_k)
+                 % 32 for lane in range(32)}
+        assert len(banks) == 32
 
 
 def test_main_path_plan():
@@ -298,3 +347,190 @@ def test_main_path_plan():
     # P + 1 rows (the halo) of 512 points within the kernel's block.
     assert pl.demod.P == 8 and pl.demod.S == 512
     assert pl.keep.ob1 == 63_601 and pl.keep.keep == 63_601
+    # K-XDEMOD's demod pass: the same block, its staged quad rows 516
+    # floats apart, and 16-byte stores of the quad (runs of 8 rows, the
+    # k stride a multiple of 4).
+    quad = xd.plan(1 << 18, 96).demod
+    assert (quad.P, quad.L, quad.os, quad.ok) == (8, 512, 1, 512)
+    assert xd.demod_threads(quad.P, quad.L) == 288 == xd.DEMOD_MAX_THREADS
+    assert xd.quad_pitch(quad.L, quad.P) == 516
+    assert xd.demod_smem_bytes(8, 512) == 8 * 9 * 545 >= 4 * 8 * 516
+
+
+@pytest.mark.parametrize("out_offset", [0, 2])
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 16])
+def test_demod_store_emulated_every_block(rows, out_offset, monkeypatch):
+    """The in-register demod and the staged quad store for every P the
+    plan can take (1 and 2: single floats; 4, 8, 16: 16-byte stores of
+    four rows), and from a result that is off a 16-byte boundary (single
+    floats again), against the float64 plain version."""
+    from radiocore_tpu_torch.kernels import extract_demod as xd
+    monkeypatch.setattr(xd, "DEMOD_ROWS", rows)
+    monkeypatch.setattr(xd, "DEMOD_MAX_THREADS", 1024)
+    xd.plan.cache_clear()
+    try:
+        c, m, n, a0 = 2, 4096, 1 << 14, 5000
+        pl = xd.plan(m, c, None)
+        assert pl.demod.P == rows
+        spectrum = _spectrum(n, seed=rows).astype(np.complex128)
+        s = np.full(c * m, np.nan, np.complex128)
+        emulate_passes([pl.first], None, +1.0, c * m, modes=[(1, 0)],
+                       load_fn=extraction_load(a0, m, n, 1.0 / n),
+                       bufs={"x": spectrum, "s": s})
+        got = demod_model(pl.demod, s, 1.0 / np.pi, False,
+                          out_offset=out_offset).reshape(c, m)
+        want = xd.extract_demod_rows_plain(torch.from_numpy(spectrum), a0,
+                                           c, m).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-9)
+    finally:
+        xd.plan.cache_clear()
+
+
+def _atan_points(seed=0, n=1 << 18):
+    """Seeded float32 points: every magnitude from 1e-30 to 1e30 at any
+    angle, component ratios up to 1e8 either way, subnormals, the axes and
+    the origin with either sign of zero."""
+    rng = np.random.default_rng(seed)
+    mag, th = 10.0 ** rng.uniform(-30, 30, n), rng.uniform(-np.pi, np.pi, n)
+    x1, y1 = mag * np.cos(th), mag * np.sin(th)
+    x2 = rng.standard_normal(n)
+    y2 = x2 * 10.0 ** rng.uniform(-8, 8, n)
+    sub, th = 10.0 ** rng.uniform(-45, -37, n), rng.uniform(-np.pi, np.pi, n)
+    x3, y3 = sub * np.cos(th), sub * np.sin(th)
+    zeros = np.array([0.0, -0.0])
+    vals = np.array([0.0, -0.0, 1.0, -1.0, 1e-30, -1e30, 3e-42, -3e-42])
+    x4, y4 = [g.ravel() for g in np.meshgrid(vals, vals)]
+    x5, y5 = [g.ravel() for g in np.meshgrid(zeros, zeros)]
+    x = np.concatenate([x1, x2, x3, x4, x5]).astype(np.float32)
+    y = np.concatenate([y1, y2, y3, y4, y5]).astype(np.float32)
+    return y, x
+
+
+def _atan_reference(y, x):
+    """float64 ``arctan2`` of the float32 inputs under the kernels'
+    conventions: a zero y counts as +0 and the origin gives 0."""
+    y64 = np.where(y == 0, 0.0, y.astype(np.float64))
+    return atan2_origin0(y64, x.astype(np.float64))
+
+
+def test_discriminator_model_matches_float64():
+    """The numpy float32 model of the kernels' ``atan2_fast``, coefficient
+    for coefficient what csrc/extract_demod.cu holds, against float64
+    ``arctan2``: within 2e-6 rad everywhere."""
+    from radiocore_tpu_torch.kernels import extract_demod as xd
+    y, x = _atan_points()
+    got = xd.atan2_fast_model(y, x)
+    assert got.dtype == np.float32
+    err = np.abs(got.astype(np.float64) - _atan_reference(y, x))
+    assert err.max() <= 2e-6, err.max()
+    # The CPU route of the wrapper is the model.
+    np.testing.assert_array_equal(
+        xd.atan2_fast(torch.from_numpy(y), torch.from_numpy(x)).numpy(), got)
+
+
+def test_discriminator_coefficients_are_the_kernels():
+    """``ATAN_Q`` is, literal for literal, the polynomial in the CUDA
+    source (highest power first)."""
+    import re
+    from radiocore_tpu_torch.kernels import build, extract_demod as xd
+    src = (build.CSRC_DIR / "extract_demod.cu").read_text()
+    body = src[src.index("float atan2_fast("):src.index("float discriminate(")]
+    first = re.search(r"float q = (-?[0-9.e-]+)f;", body).group(1)
+    rest = re.findall(r"q = fmaf\(q, s, (-?[0-9.e-]+)f\);", body)
+    assert tuple(float(v) for v in [first] + rest) == xd.ATAN_Q
+    assert len(xd.ATAN_Q) == 6
+
+
+@pytest.mark.parametrize("y,x,want", [
+    (0.0, 0.0, 0.0), (-0.0, 0.0, 0.0), (0.0, -0.0, 0.0), (-0.0, -0.0, 0.0),
+    (0.0, 2.0, 0.0), (-0.0, 2.0, 0.0), (0.0, -2.0, np.pi), (-0.0, -2.0, np.pi),
+    (3.0, 0.0, np.pi / 2), (3.0, -0.0, np.pi / 2), (-3.0, 0.0, -np.pi / 2),
+    (1.0, 1.0, np.pi / 4), (-1.0, -1.0, -3 * np.pi / 4),
+])
+def test_discriminator_model_axes_and_origin(y, x, want):
+    """Exactly 0 at the origin whatever the zeros' signs; on the axes
+    ``np.arctan2`` with a zero y taken as +0, as the JAX ``atan2_poly``."""
+    from radiocore_tpu.kernels.extract_demod_pallas import atan2_poly
+    from radiocore_tpu_torch.kernels import extract_demod as xd
+    got = float(xd.atan2_fast_model(np.float32(y), np.float32(x)))
+    jax_got = float(atan2_poly(jnp.float32(y), jnp.float32(x)))
+    if x == 0 and y == 0:
+        assert got == 0.0 and jax_got == 0.0
+    assert abs(got - want) <= 2e-6
+    assert abs(got - jax_got) <= 3e-6
+
+
+def test_discriminator_model_matches_jax_atan2_poly():
+    """Against the JAX kernels' own discriminator on normal float32
+    inputs (XLA flushes subnormals, which ``atan2_poly`` guards): within
+    3e-6 rad."""
+    from radiocore_tpu.kernels.extract_demod_pallas import atan2_poly
+    from radiocore_tpu_torch.kernels import extract_demod as xd
+    y, x = _atan_points(seed=1)
+    normal = ((np.abs(x) >= 1e-30) | (x == 0)) & ((np.abs(y) >= 1e-30)
+                                                  | (y == 0))
+    y, x = y[normal], x[normal]
+    got = xd.atan2_fast_model(y, x).astype(np.float64)
+    want = np.asarray(atan2_poly(jnp.asarray(y), jnp.asarray(x)),
+                      dtype=np.float64)
+    assert np.abs(got - want).max() <= 3e-6
+
+
+def _dead_spectrum(c, m, n, a0, dead, seed):
+    """A spectrum in which station ``dead``'s run, and the bin after it
+    that its Nyquist fold reads, are exactly zero."""
+    spec = _spectrum(n, seed=seed)
+    spec[(a0 + dead * m + np.arange(m + 1)) % n] = 0
+    return spec
+
+
+def test_dead_station_quad_is_zero_as_in_jax():
+    """A station whose bins are exactly zero demodulates to exactly 0 in
+    the JAX kernel (interpret mode), in the port's plain version and in
+    the numpy model of the kernel's pass with its own discriminator; the
+    live stations keep the suite's tolerance."""
+    from radiocore_tpu.kernels.extract_demod_pallas import (
+        extract_demod_rows_pallas)
+    from radiocore_tpu_torch.kernels import extract_demod as xd
+    c, m, n, dead = 4, 512, 2048, 2
+    a0 = _a0(c, m, n)
+    spec = _dead_spectrum(c, m, n, a0, dead, seed=23)
+    want = np.asarray(extract_demod_rows_pallas(jnp.asarray(spec), a0, c, m))
+    got = xd.extract_demod_rows(torch.from_numpy(spec), a0, c, m).numpy()
+    assert np.all(want[dead] == 0.0) and np.all(got[dead] == 0.0)
+    live = [i for i in range(c) if i != dead]
+    assert np.abs(want[live]).max() > 0.1
+    np.testing.assert_allclose(got[live], want[live], atol=ATOL)
+
+    def disc(y, x):
+        return xd.atan2_fast_model(y, x).astype(np.float64)
+
+    pl = xd.plan(m, c, None)
+    s = np.full(c * m, np.nan, np.complex128)
+    emulate_passes([pl.first], None, +1.0, c * m, modes=[(1, 0)],
+                   load_fn=extraction_load(a0, m, n, 1.0 / n),
+                   bufs={"x": spec.astype(np.complex128), "s": s})
+    model = demod_model(pl.demod, s, 1.0 / np.pi, False,
+                        atan2=disc).reshape(c, m)
+    assert np.all(model[dead] == 0.0)
+    np.testing.assert_allclose(model[live], want[live], atol=ATOL)
+
+
+def test_dead_station_spectrum_is_zero_as_in_jax():
+    """The same for the SPEC kernels: a dead station's kept bins are
+    exactly 0 in the JAX kernel and in the port's plain version."""
+    from radiocore_tpu.kernels.extract_demod_pallas import (
+        extract_demod_spec_rows_pallas)
+    from radiocore_tpu_torch.kernels import extract_demod as xd
+    c, m, n, dead, keep = 4, 16_384, 65_536, 3, 16_384 // 4 + 100
+    a0 = _a0(c, m, n)
+    spec = _dead_spectrum(c, m, n, a0, dead, seed=29)
+    want = np.asarray(extract_demod_spec_rows_pallas(
+        jnp.asarray(spec), a0, c, m, keep_bins=keep))[:, :keep]
+    got = xd.extract_demod_spec_rows(torch.from_numpy(spec), a0, c, m,
+                                     keep_bins=keep).numpy()
+    assert np.all(want[dead] == 0) and np.all(got[dead] == 0)
+    live = [i for i in range(c) if i != dead]
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got[live] / scale, want[live] / scale,
+                               atol=SPEC_REL)

@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 import radiocore_tpu_torch
 
 REPO = Path(__file__).resolve().parent.parent
@@ -40,7 +42,9 @@ def test_platform_summary_without_cuda():
     assert summary["has_cuda"] == torch.cuda.is_available()
     if not summary["has_cuda"]:
         assert summary["platform"] == "cpu"
-        assert platform.default_device() == torch.device("cpu")
+        # No silent fallback to the CPU: the missing device is named.
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            platform.default_device()
 
 
 def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
