@@ -41,10 +41,36 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    stereo station — and the ``"fused"`` and default modes at 96
    stations over 2 chunks each (launch counters, chunk 1 against the
    CPU). The main and ``spec`` steps are also traced with
-   ``torch.profiler`` (device time per kernel, busy and idle share).
+   ``torch.profiler`` (device time per kernel, busy and idle share);
+8. runs K-NCO (the feedback pilot loop) against its plain PyTorch loop at
+   8 x 4096 and on rows off a 16-byte boundary, and at 64 x 262 144, on
+   rms-normalised 19 kHz pilots with a frequency offset and noise,
+   against a float64 model of the loop for a few rows, modulo 2 pi; times
+   it (CUDA events and ``torch.profiler``) beside its bytes bound and
+   prints the cycles it takes per sample;
+9. runs K-FIR at the pilot bandpass's shape (41 taps, 64 x 262 390, the
+   odd extension included) against float64, and ``zero_phase_fir`` on the
+   card against the port on the CPU;
+10. drives ``make_multi_station_step(mode="exact")`` at 64 x 262 144 over
+    3 chained chunks (launch counters: K-FFT, K-EXTRACT and three K-FIR
+    launches a step; step and stage times; a profile; chunk 1 against the
+    CPU; one real stereo station, and ``fast`` against ``exact`` on it);
+11. drives ``make_wbfm_step(mode="exact", pll="nco")`` on a batch of 64
+    stations over 2 chained chunks and ``WBFM(262 144, 49 152,
+    pll="nco")`` over two chunks of one station through ``run`` (host
+    array in, NumPy out): tones, the carried loop state, one K-NCO launch
+    a chunk;
+12. runs ``FM``, ``MFM``, ``WBFM``, ``Decimate``, ``Bandpass``,
+    ``Deemphasis`` and ``PLL`` once each on the card at 262 144 against
+    the port on the CPU, and a complex128 band, a float64 history and
+    more than 4096 taps through ``ops/fft.fft`` and ``ops/fir.fir_causal``;
+13. feeds whole steps (``off``, ``fused``, ``spec``) a 64-station spectrum
+    in which two stations' bins are exactly zero: the dead stations'
+    audio must be finite and, like the live ones', equal to the port's on
+    the CPU.
 
 The build fails the run if ``ptxas`` reports register spills for the
-demod pass of K-XDEMOD(-SPEC) or for K-FIR's kernel.
+demod pass of K-XDEMOD(-SPEC), for K-FIR's kernel or for K-NCO's.
 
 Every phase raises on failure. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result. The
@@ -69,7 +95,9 @@ N_STATIONS = 64
 STATION = 262_144
 AUDIO = 49_152
 N_BAND = N_STATIONS * STATION
-CHUNKS = 5
+CHUNKS = 3
+CHUNKS_EXACT = 3      # the exact path
+CHUNKS_NCO = 2        # the nco paths
 
 # The 96-station plan (bench.py's station count knob at 96): band
 # 96 · 2^18 = 25 165 824, not a power of two, so the band FFT is K-MIXED.
@@ -86,6 +114,13 @@ XSPEC_REL_MAX = 3e-5    # K-XDEMOD-SPEC, max abs / max |ref|
 ATAN_ABS_MAX = 2e-6   # the discriminator against float64 atan2, rad
 E2E_ABS_MAX = 1e-4    # card against CPU, audio of chunk 1
 SNR_MIN_DB = 20.0     # per stereo tone, as the repository's verify drive
+# K-NCO. Against its plain loop the kernel rounds alike (0 expected); the
+# bound leaves room for a cosf that differs in its last bit. Against the
+# float64 model the loop's own feedback holds float32 rounding down.
+NCO_PLAIN_MAX = 1e-5  # rad, modulo 2 pi
+NCO_F64_MAX = 2e-4    # rad, modulo 2 pi
+NCO_SHORT = (8, 4096)
+FAST_EXACT_MIN_DB = 40.0   # fast against exact audio on a real station
 
 # Published peaks of one H100 SXM: the yardstick of each kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
@@ -110,6 +145,9 @@ KERNELS = {
                  "radiocore_tpu/kernels/extract_demod_pallas.py:153"),
     "K-XDEMOD-SPEC": ("radiocore_tpu_torch/csrc/extract_demod.cu",
                       "radiocore_tpu/kernels/extract_demod_pallas.py:278"),
+    # Replaces a lax.scan, not a TPU kernel.
+    "K-NCO": ("radiocore_tpu_torch/csrc/nco_pll.cu",
+              "radiocore_tpu/ops/nco_pll.py:53"),
 }
 
 
@@ -165,28 +203,59 @@ def time_min_median_ms(fn, reps: int = 50):
     return min(ms), statistics.median(ms)
 
 
+def traced(fn, reps: int, lead_ms: float = 100.0):
+    """``[(start, end, name)]`` (microseconds) of every device event of
+    ``reps`` calls of ``fn()``, traced with ``torch.profiler``.
+
+    The profiler can drop what the card ran in the first milliseconds of
+    its window (seen: the first of ten launches, two of three 20-ms
+    launches, thirty 0.06-ms launches), so the window opens with
+    ``lead_ms`` of unmeasured calls, and the measured ones lie between
+    two launches of a marker kernel (the port's ``atan2_fast`` on one
+    element, which no path launches): only events between the markers
+    count. If a marker is lost the lead-in is made four times as long,
+    twice over, before this raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from radiocore_tpu_torch.kernels import extract_demod
+    one = torch.ones(1, device="cuda")
+    for _ in range(3):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            while (time.perf_counter() - t0) * 1e3 < lead_ms:
+                fn()
+                torch.cuda.synchronize()
+            extract_demod.atan2_fast(one, one)
+            for _ in range(reps):
+                fn()
+            extract_demod.atan2_fast(one, one)
+            torch.cuda.synchronize()
+        events = sorted(
+            (ev.time_range.start, ev.time_range.end, ev.name)
+            for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA)
+        marks = [ev for ev in events if "atan2_fast_kernel" in ev[2]]
+        if len(marks) == 2:
+            inside = [ev for ev in events
+                      if marks[0][1] <= ev[0] < marks[1][0]]
+            if inside:
+                return inside
+        lead_ms *= 4
+    raise AssertionError(f"torch.profiler lost the start of its window "
+                         f"(lead-ins up to {lead_ms / 4:.0f} ms)")
+
+
 def kernel_times_ms(fn, reps: int = 10):
     """Device time per call of each kernel that ``fn()`` launches, from
     ``torch.profiler``: ``[(kernel name, ms)]`` in the order of launch."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     total, first = {}, {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t0, t1 = ev.time_range.start, ev.time_range.end
-        total[ev.name] = total.get(ev.name, 0.0) + (t1 - t0)
-        first[ev.name] = min(first.get(ev.name, t0), t0)
-    if not total:
-        raise AssertionError("the profiler saw no device time")
+    for t0, t1, name in traced(fn, reps):
+        total[name] = total.get(name, 0.0) + (t1 - t0)
+        first.setdefault(name, t0)
     return [(name, total[name] / reps / 1e3)
             for name in sorted(total, key=first.get)]
 
@@ -225,14 +294,13 @@ def time_pair_ms(fn_a, fn_b):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def fm_band(gen, c: int, sc: int, device):
-    """Band chunk of ``c`` FM stereo stations (random tones per station,
-    the multiplex of ``tests/oracles.make_stereo_multiplex`` and the
-    modulation of ``make_fm_iq``) plus complex noise, built on ``device``
-    from the generator ``gen``."""
+def fm_stations(gen, c: int, sc: int, device):
+    """IQ of ``c`` FM stereo stations, ``(c, sc)`` complex128 (random
+    tones per station, the multiplex of
+    ``tests/oracles.make_stereo_multiplex`` and the modulation of
+    ``make_fm_iq``), built on ``device`` from the generator ``gen``."""
     import torch
     f64 = dict(dtype=torch.float64, device=device)
-    n = c * sc
     t = torch.arange(sc, **f64) / sc
     tones = 200.0 + 1800.0 * torch.rand(c, 2, generator=gen, **f64)
     left = 0.3 * torch.sin(2 * math.pi * tones[:, :1] * t)
@@ -240,7 +308,16 @@ def fm_band(gen, c: int, sc: int, device):
     sub_gain = 1.0 / (0.54 + 0.46 * math.cos(2 * math.pi * 38e3 / sc))
     mpx = ((left + right) / 2 + 0.1 * torch.sin(2 * math.pi * 19e3 * t)
            - torch.sin(2 * math.pi * 38e3 * t) * (left - right) * sub_gain)
-    iq = torch.exp(1j * math.pi * 0.25 * torch.cumsum(mpx, dim=-1))
+    return torch.exp(1j * math.pi * 0.25 * torch.cumsum(mpx, dim=-1))
+
+
+def fm_band(gen, c: int, sc: int, device):
+    """Band chunk of the ``c`` stations of :func:`fm_stations`, one per
+    slot, plus complex noise."""
+    import torch
+    f64 = dict(dtype=torch.float64, device=device)
+    n = c * sc
+    iq = fm_stations(gen, c, sc, device)
     k = torch.fft.fftfreq(sc, 1.0 / sc, device=device).long()
     bins = (torch.tensor(offsets(c, sc), device=device)[:, None] + k) % n
     spec = torch.zeros(n, dtype=torch.complex128, device=device)
@@ -776,12 +853,15 @@ def check_dead_stations(device, gen) -> None:
         raise AssertionError("; ".join(failures))
 
 
-def path_counters(c: int, extract_demod: str) -> dict:
+def path_counters(c: int, extract_demod: str, mode: str = "fast") -> dict:
     """The launch counters of the kernels a path must go through."""
     from radiocore_tpu_torch.kernels import (extract, extract_demod as xd,
                                              fft_mixed, fft_rows, fir)
     band = {"K-FFT": fft_rows.launches} if c * STATION == N_BAND else {
         "K-MIXED": fft_mixed.launches}
+    if mode == "exact":
+        return {**band, "K-EXTRACT": extract.launches,
+                "K-FIR": fir.launches}
     rfft = {"K-FFT": fft_rows.launches}
     middle = {"off": {"K-EXTRACT": extract.launches, **rfft},
               "fused": {"K-XDEMOD": xd.launches, **rfft},
@@ -790,7 +870,7 @@ def path_counters(c: int, extract_demod: str) -> dict:
 
 
 def run_main_path(device, gen, c=N_STATIONS, sc=STATION, ac=AUDIO,
-                  chunks=CHUNKS, extract_demod="off"):
+                  chunks=CHUNKS, extract_demod="off", mode="fast"):
     """Drive a path over ``chunks`` chained chunks; returns the step, its
     state, the first chunk's band and audio and the launch counts of the
     kernels the path must go through (counted from 0 around the run)."""
@@ -798,11 +878,11 @@ def run_main_path(device, gen, c=N_STATIONS, sc=STATION, ac=AUDIO,
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
 
     step, state = make_multi_station_step(c * sc, offsets(c, sc), sc, ac,
-                                          mode="fast",
+                                          mode=mode,
                                           extract_demod=extract_demod,
                                           device=device)
     bands = [fm_band(gen, c, sc, device) for _ in range(chunks)]
-    counters = path_counters(c, extract_demod)
+    counters = path_counters(c, extract_demod, mode)
     torch.cuda.synchronize()
     for counter in counters.values():
         counter.reset()
@@ -819,8 +899,9 @@ def run_main_path(device, gen, c=N_STATIONS, sc=STATION, ac=AUDIO,
             raise AssertionError("non-finite audio")
     for name, count in launches.items():
         if count <= 0:
-            raise AssertionError(f"{name} never launched on the "
-                                 f"extract_demod={extract_demod!r} path")
+            raise AssertionError(f"{name} never launched on the mode="
+                                 f"{mode!r}, extract_demod="
+                                 f"{extract_demod!r} path")
     return step, state, bands[0], audios[0], launches
 
 
@@ -861,28 +942,16 @@ def profile_step(what, step, band, state, steps: int = 10) -> None:
     the span from the first kernel's start to the last one's end, the
     device's busy time and idle share, and the device time of each kernel
     that takes at least 1% of the busy time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    def one_step():
+        nonlocal state
         _, state = step(band, state)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            _, state = step(band, state)
-        torch.cuda.synchronize()
-    by_name, first, last, busy = {}, None, None, 0.0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t0, t1 = ev.time_range.start, ev.time_range.end
-        first = t0 if first is None else min(first, t0)
-        last = t1 if last is None else max(last, t1)
+
+    events = traced(one_step, steps)
+    by_name, busy = {}, 0.0
+    for t0, t1, name in events:
         busy += t1 - t0
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + (t1 - t0)
-    if not busy > 0:
-        raise AssertionError(f"{what}: the profiler saw no device time")
-    span = last - first
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
+    span = max(t1 for _, t1, _ in events) - events[0][0]
     print(f"[{what}] profile, per step of {steps}: span "
           f"{span / steps / 1e3:.3f} ms, device busy "
           f"{busy / steps / 1e3:.3f} ms, idle share "
@@ -895,10 +964,10 @@ def profile_step(what, step, band, state, steps: int = 10) -> None:
 
 def check_spills(log: str) -> None:
     """Print what ``ptxas -v`` reported as spilled for every pass kernel
-    (``*_pass_kernel``) and raise if an instantiation of the demod pass or
-    K-FIR's kernel spills, or either does not appear in the log."""
+    (``*_pass_kernel``) and raise if an instantiation of the demod pass,
+    K-FIR's kernel or K-NCO's spills, or one does not appear in the log."""
     import re
-    held = {"demod_pass_kernel": 0, "fir_kernel": 0}
+    held = {"demod_pass_kernel": 0, "fir_kernel": 0, "nco_pll_kernel": 0}
     entry = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -925,11 +994,12 @@ def check_spills(log: str) -> None:
         print(f"[build] {name}: {seen} instantiations, no register spills")
 
 
-def against_cpu(what, c, band1, audio1, extract_demod="off") -> float:
+def against_cpu(what, c, band1, audio1, extract_demod="off",
+                mode="fast") -> float:
     """Chunk 1 through the same port on the CPU; raise above the bound."""
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
     step_cpu, state_cpu = make_multi_station_step(
-        c * STATION, offsets(c, STATION), STATION, AUDIO, mode="fast",
+        c * STATION, offsets(c, STATION), STATION, AUDIO, mode=mode,
         extract_demod=extract_demod, device="cpu")
     audio_cpu, _ = step_cpu(band1.cpu(), state_cpu)
     e2e = max_abs(audio1.cpu(), audio_cpu)
@@ -940,26 +1010,459 @@ def against_cpu(what, c, band1, audio1, extract_demod="off") -> float:
     return e2e
 
 
-def check_station(what, step, c, device, extract_demod="off"):
-    """One real stereo station in slot c // 3 of a c-station band."""
+def check_station(what, step, c, device, extract_demod="off", mode="fast"):
+    """One real stereo station in slot c // 3 of a c-station band;
+    returns its audio ``(AUDIO, 2)`` as float64 NumPy."""
     import numpy as np
     import torch
-    from oracles import tone_snr_db
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
     slot = c // 3
     noise_gen = torch.Generator(device=device).manual_seed(SEED + 1)
     band = station_band(slot, c, STATION, noise_gen, device)
     _, state0 = make_multi_station_step(
-        c * STATION, offsets(c, STATION), STATION, AUDIO, mode="fast",
+        c * STATION, offsets(c, STATION), STATION, AUDIO, mode=mode,
         extract_demod=extract_demod, device=device)
     audio, _ = step(band, state0)
-    a = audio[slot].cpu().numpy().astype(np.float64)[2000:-2000]
+    a = audio[slot].cpu().numpy().astype(np.float64)
+    check_tones(what, f"slot {slot}", a)
+    return a
+
+
+def check_tones(what, where, audio) -> None:
+    """Both tones of the real station (440 Hz left, 1 kHz right) in its
+    audio ``(AUDIO, 2)``, the edges left out; raise below the bound."""
+    from oracles import tone_snr_db
+    a = audio[2000:-2000]
     snr = (tone_snr_db(a[:, 0], AUDIO, 440.0),
            tone_snr_db(a[:, 1], AUDIO, 1000.0))
-    print(f"[{what}] slot {slot}: left 440 Hz {snr[0]:.1f} dB, right "
-          f"1 kHz {snr[1]:.1f} dB (bound {SNR_MIN_DB:.0f} dB)")
+    print(f"[{what}] {where}: left 440 Hz {snr[0]:.1f} dB, right 1 kHz "
+          f"{snr[1]:.1f} dB (bound {SNR_MIN_DB:.0f} dB)")
     if not min(snr) > SNR_MIN_DB:
-        raise AssertionError(f"stereo tone SNR {snr} below {SNR_MIN_DB} dB")
+        raise AssertionError(f"{what} {where}: stereo tone SNR {snr} below "
+                             f"{SNR_MIN_DB} dB")
+
+
+def wrapped(a, b):
+    """``a - b`` modulo 2 pi, in (-pi, pi]: two correct runs of the loop
+    may wrap one sample apart."""
+    import torch
+    d = (a.double() - b.double() + math.pi) % (2 * math.pi) - math.pi
+    return torch.where(d <= -math.pi, d + 2 * math.pi, d)
+
+
+def pilots(gen, rows: int, n: int, device):
+    """``rows`` rms-normalised 19 kHz pilots of ``n`` samples at
+    ``STATION`` samples a second, float32: each with its own frequency
+    offset (within +-3 Hz) and start phase, plus noise at 0.1 of the rms."""
+    import torch
+    f64 = dict(dtype=torch.float64, device=device)
+    t = torch.arange(n, **f64) / STATION
+    f = 19e3 + 6.0 * (torch.rand(rows, 1, generator=gen, **f64) - 0.5)
+    phi = 2 * math.pi * torch.rand(rows, 1, generator=gen, **f64)
+    x = math.sqrt(2.0) * torch.sin(2 * math.pi * f * t + phi)
+    x += 0.1 * torch.randn(rows, n, generator=gen, **f64)
+    return x.float()
+
+
+def nco_model_f64(pilot, gains, phase, freq):
+    """The loop in float64 NumPy, rows as the vector: ``(traj, phase,
+    freq)``."""
+    import numpy as np
+    kp, ki, w0 = gains
+    x = np.asarray(pilot, np.float64)
+    phase = np.array(phase, np.float64)
+    freq = np.array(freq, np.float64)
+    traj = np.empty_like(x)
+    for t in range(x.shape[-1]):
+        err = x[:, t] * np.cos(phase)
+        traj[:, t] = phase
+        freq = freq + ki * err
+        phase = phase + w0 + freq + kp * err
+        phase = np.where(phase > np.pi, phase - 2 * np.pi, phase)
+    return traj, phase, freq
+
+
+def sm_clock_mhz():
+    """The SM clock ``nvidia-smi`` reports right now, in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def check_nco(device, gen) -> dict:
+    """Phase 8: K-NCO against its plain loop at a short length (aligned
+    rows and rows off a 16-byte boundary) and, at the nco path's shape,
+    against a float64 model of the loop; its time beside its bound."""
+    import numpy as np
+    import torch
+    from radiocore_tpu_torch.kernels import nco_pll as knco
+    from radiocore_tpu_torch.ops.nco_pll import pll_design
+
+    gains = pll_design(STATION, 19e3, 50.0)
+    rows, n = NCO_SHORT
+    wide = pilots(gen, rows, n + 8, device)
+    short = {}
+    for what, x in ((f"{rows}x{n}", wide[:, :n].contiguous()),
+                    (f"{rows}x{n + 1} rows off a 16-byte boundary",
+                     wide[:, 1:n + 2])):
+        phase0 = 2.0 * torch.rand(rows, generator=gen, device=device) - 1.0
+        freq0 = 1e-5 * torch.randn(rows, generator=gen, device=device)
+        got = knco.nco_pll_track_rows(x, *gains, phase0, freq0)
+        ref = knco.nco_pll_track_plain(x, *gains, phase0, freq0)
+        errs = (float(wrapped(got[0], ref[0]).abs().max()),
+                float(wrapped(got[1], ref[1]).abs().max()),
+                max_abs(got[2], ref[2]))
+        ms = time_ms(lambda: knco.nco_pll_track_rows(x, *gains, phase0,
+                                                     freq0), reps=5, warmup=1)
+        print(f"[kernel] K-NCO {what} against the plain loop: trajectory "
+              f"{errs[0]:.3e} rad, final phase {errs[1]:.3e} rad (bound "
+              f"{NCO_PLAIN_MAX:.0e}, modulo 2 pi), final freq {errs[2]:.3e}; "
+              f"kernel {ms:.3f} ms")
+        if not (max(errs[:2]) <= NCO_PLAIN_MAX and errs[2] <= 1e-7):
+            raise AssertionError(f"K-NCO {what} differs from its plain "
+                                 f"loop: {errs}")
+        if not short:
+            short = dict(err=errs[0], ms=ms, plain_ms=time_ms(
+                lambda: knco.nco_pll_track_plain(x, *gains, phase0, freq0),
+                reps=2, warmup=0))
+    del wide
+
+    # The nco path's shape: 64 stations, one second.
+    rows, n = N_STATIONS, STATION
+    x = pilots(gen, rows, n, device)
+    zeros = torch.zeros(rows, device=device)
+    traj, phase, freq = knco.nco_pll_track_rows(x, *gains, zeros, zeros)
+    torch.cuda.synchronize()
+    held = [0, rows // 2, rows - 1]
+    t0 = time.perf_counter()
+    ref = nco_model_f64(x[held].cpu().numpy(), gains, np.zeros(len(held)),
+                        np.zeros(len(held)))
+    model_s = time.perf_counter() - t0
+    err = float(wrapped(traj[held].cpu(), torch.from_numpy(ref[0])).abs().max())
+    err_p = float(wrapped(phase[held].cpu(),
+                          torch.from_numpy(ref[1])).abs().max())
+    err_f = float((freq[held].cpu().double()
+                   - torch.from_numpy(ref[2])).abs().max())
+    # Locked: the integrator holds each row's frequency offset.
+    hz = freq.double() * STATION / (2 * math.pi)
+    ms = time_ms(lambda: knco.nco_pll_track_rows(x, *gains, zeros, zeros),
+                 reps=5, warmup=1)
+    # The SM clock while the kernel runs: some launches in flight.
+    for _ in range(8):
+        knco.nco_pll_track_rows(x, *gains, zeros, zeros)
+    mhz = sm_clock_mhz()
+    torch.cuda.synchronize()
+    (_, device_ms), = [(k, t) for k, t in kernel_times_ms(
+        lambda: knco.nco_pll_track_rows(x, *gains, zeros, zeros), reps=3)
+        if "nco_pll_kernel" in k]
+    least = bound(4 * (2 * x.numel() + 4 * rows), 30.0 * x.numel())
+    # As many samples over 32 times the rows: whether the time follows
+    # the row length alone.
+    many = x.reshape(32 * rows, n // 32)
+    zeros_many = torch.zeros(32 * rows, device=device)
+    many_ms = time_ms(lambda: knco.nco_pll_track_rows(
+        many, *gains, zeros_many, zeros_many), reps=5, warmup=1)
+    print(f"[kernel] K-NCO {rows}x{n} against the float64 model (rows "
+          f"{held}, {model_s:.1f} s on the host): trajectory {err:.3e} rad, "
+          f"final phase {err_p:.3e} rad (bound {NCO_F64_MAX:.0e}, modulo "
+          f"2 pi), final freq {err_f:.3e}; tracked offsets "
+          f"{float(hz.min()):+.2f} .. {float(hz.max()):+.2f} Hz")
+    print(f"[kernel] K-NCO {rows}x{n}: kernel {ms:.3f} ms between CUDA "
+          f"events, {device_ms:.3f} ms device time, least "
+          f"{least['bound_ms']:.3f} ms by {least['bound_by']} "
+          f"({least['bound_ms'] / ms:.1%}); {ms * 1e-3 * mhz * 1e6 / n:.1f} "
+          f"cycles a sample at {mhz:.0f} MHz (nvidia-smi clocks.sm during "
+          f"the run); at {NCO_SHORT[0]}x{NCO_SHORT[1]}: kernel "
+          f"{short['ms']:.3f} ms, plain loop {short['plain_ms']:.1f} ms; "
+          f"the same samples as {32 * rows}x{n // 32}: {many_ms:.3f} ms; no "
+          f"library call")
+    if not (max(err, err_p) <= NCO_F64_MAX and err_f <= 1e-6):
+        raise AssertionError(f"K-NCO against float64: {err}, {err_p}, "
+                             f"{err_f}")
+    if not float(hz.abs().max()) < 4.0:
+        raise AssertionError(f"K-NCO did not lock: offsets {hz}")
+    return dict(max_abs_err=short["err"], ms=ms, plain_ms=short["plain_ms"],
+                plain_shape=f"{NCO_SHORT[0]}x{NCO_SHORT[1]}", **least,
+                library_ms=None)
+
+
+def check_fir_pilot(device, gen) -> None:
+    """Phase 9: K-FIR at the pilot bandpass's shape (41 taps over the
+    odd-extended rows of 64 stations) against float64, and
+    ``zero_phase_fir`` on the card against the port on the CPU."""
+    import torch
+    from radiocore_tpu_torch.kernels import fir
+    from radiocore_tpu_torch.models.wbfm import (PILOT_HI, PILOT_LO,
+                                                 PILOT_TAPS)
+    from radiocore_tpu_torch.ops.design import bandpass_taps
+    from radiocore_tpu_torch.ops.fir import fir_route, zero_phase_fir
+
+    taps = bandpass_taps(PILOT_TAPS, PILOT_LO, PILOT_HI, STATION)
+    rows, n = N_STATIONS, STATION + 2 * 3 * PILOT_TAPS
+    x, hist = fir_case(device, gen, rows, n, taps)
+    got = fir.fir_causal_rows(x, taps, hist)
+    ref = fir.fir_causal_plain(x.double(), taps, hist.double())
+    report(f"K-FIR {PILOT_TAPS} taps {rows}x{n} max_abs", max_abs(got, ref),
+           FIR_ABS_MAX,
+           fir_device_ms(lambda: fir.fir_causal_rows(x, taps, hist)),
+           time_ms(lambda: fir.fir_causal_plain(x, taps, hist), reps=5),
+           bound(4 * (x.numel() + hist.numel() + got.numel()),
+                 2.0 * len(taps) * x.numel()))
+    del got, ref, hist
+    x = x[:, :STATION].contiguous()
+    if fir_route(x, taps) != "kernel":
+        raise AssertionError("zero_phase_fir's rows do not route to K-FIR")
+    fir.launches.reset()
+    got = zero_phase_fir(x, taps)
+    count = fir.launches.count
+    some = slice(None, None, 8)
+    err = max_abs(got[some].cpu(), zero_phase_fir(x[some].cpu(), taps))
+    ms = time_ms(lambda: zero_phase_fir(x, taps), reps=10)
+    print(f"[kernel] zero_phase_fir {PILOT_TAPS} taps {rows}x{STATION}: "
+          f"{count} K-FIR launches, card vs CPU (every 8th row) max_abs "
+          f"{err:.3e} (bound {FIR_ABS_MAX:.0e}), {ms:.3f} ms with its "
+          f"flips and copies")
+    if count != 2 or not err <= FIR_ABS_MAX:
+        raise AssertionError(f"zero_phase_fir on the card: {count} "
+                             f"launches, error {err}")
+
+
+def run_exact_path(device, gen, launches) -> None:
+    """Phase 10: ``make_multi_station_step(mode="exact")`` at full width."""
+    from oracles import snr_db
+    c = N_STATIONS
+    step, state, band1, audio1, counts = run_main_path(
+        device, gen, chunks=CHUNKS_EXACT, mode="exact")
+    print(f"[exact] {c} x {STATION} -> {AUDIO}, {CHUNKS_EXACT} chunks: "
+          f"audio {tuple(audio1.shape)} finite; launches {counts}")
+    if counts["K-FIR"] != 3 * CHUNKS_EXACT:
+        raise AssertionError(f"exact: {counts['K-FIR']} K-FIR launches in "
+                             f"{CHUNKS_EXACT} steps, expected 3 a step")
+    for name, count in counts.items():
+        launches.setdefault(name, count)
+    band = fm_band(gen, c, STATION, device)
+    print(f"[exact] {step_ms(step, band, state)}; stages (median of 20) "
+          + ", ".join(f"{k} {v:.3f} ms"
+                      for k, v in stage_ms(step, band, state).items()))
+    profile_step("exact", step, band, state, steps=5)
+    against_cpu("exact", c, band1, audio1, mode="exact")
+    exact = check_station("exact station", step, c, device, mode="exact")
+    del step, state, band1, audio1, band
+    fast_step, _ = _fast_step(c, device)
+    fast = check_station("exact station, fast mode", fast_step, c, device)
+    db = [snr_db(exact[1000:-1000, ch], fast[1000:-1000, ch])
+          for ch in range(2)]
+    print(f"[exact] fast against exact on the station's audio: left "
+          f"{db[0]:.1f} dB, right {db[1]:.1f} dB (bound "
+          f"{FAST_EXACT_MIN_DB:.0f} dB)")
+    if not min(db) > FAST_EXACT_MIN_DB:
+        raise AssertionError(f"fast against exact: {db} dB")
+
+
+def _fast_step(c, device, extract_demod="off"):
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    return make_multi_station_step(
+        c * STATION, offsets(c, STATION), STATION, AUDIO, mode="fast",
+        extract_demod=extract_demod, device=device)
+
+
+def real_station_iq(seconds: int = 1):
+    """The real station (440 Hz left, 1 kHz right; NumPy oracles) as
+    complex64 IQ, ``seconds`` chunks of ``STATION`` samples."""
+    import numpy as np
+    from oracles import make_fm_iq, make_stereo_multiplex
+    mpx = make_stereo_multiplex(seconds * STATION, STATION, 440.0, 1000.0)
+    return make_fm_iq(mpx, 0.25).astype(np.complex64).reshape(seconds,
+                                                              STATION)
+
+
+def run_nco_paths(device, gen, launches) -> None:
+    """Phase 11: the nco pilot tracker on a station batch through
+    ``make_wbfm_step`` and on one station through the ``WBFM`` class."""
+    import numpy as np
+    import torch
+    from radiocore_tpu_torch.kernels import fir, nco_pll as knco
+    from radiocore_tpu_torch.models.wbfm import (WBFM, make_wbfm_step,
+                                                 wbfm_init_state)
+
+    c = N_STATIONS
+    real = real_station_iq(CHUNKS_NCO)
+    step = make_wbfm_step(STATION, AUDIO, mode="exact", pll="nco")
+    state = wbfm_init_state(AUDIO, batch_shape=(c,), pll="nco",
+                            device=device)
+    chunks = []
+    for i in range(CHUNKS_NCO):
+        iq = fm_stations(gen, c, STATION, device).to(torch.complex64)
+        iq[0] = torch.from_numpy(real[i]).to(device)
+        chunks.append(iq)
+    torch.cuda.synchronize()
+    knco.launches.reset()
+    fir.launches.reset()
+    audios = []
+    for iq in chunks:
+        audio, state = step(iq, state)
+        audios.append(audio)
+    torch.cuda.synchronize()
+    counts = {"K-NCO": knco.launches.count, "K-FIR": fir.launches.count}
+    print(f"[nco] make_wbfm_step(pll='nco') {c} x {STATION} -> {AUDIO}, "
+          f"{CHUNKS_NCO} chunks: launches {counts}")
+    if counts != {"K-NCO": CHUNKS_NCO, "K-FIR": 3 * CHUNKS_NCO}:
+        raise AssertionError(f"nco: launches {counts}")
+    launches["K-NCO"] = counts["K-NCO"]
+    for i, audio in enumerate(audios):
+        if tuple(audio.shape) != (c, AUDIO, 2):
+            raise AssertionError(f"nco: audio shape {tuple(audio.shape)}")
+        if not bool(torch.isfinite(audio).all()):
+            raise AssertionError("nco: non-finite audio")
+        check_tones("nco", f"station batch, chunk {i + 1}, row 0",
+                    audio[0].cpu().numpy().astype(np.float64))
+    pll = state["pll"]
+    hz = pll.freq.double() * STATION / (2 * math.pi)
+    if tuple(pll.phase.shape) != (c,) or not bool((pll.phase != 0).all()):
+        raise AssertionError("nco: the loop state was not carried")
+    ms = time_ms(lambda: step(chunks[0], state), reps=3, warmup=1)
+    print(f"[nco] step {ms:.3f} ms (median of 3); carried loop state: "
+          f"frequency offsets {float(hz.min()):+.3f} .. "
+          f"{float(hz.max()):+.3f} Hz")
+    del chunks, audios, state
+
+    wbfm = WBFM(STATION, AUDIO, pll="nco")
+    knco.launches.reset()
+    for i in range(CHUNKS_NCO):
+        t0 = time.perf_counter()
+        audio = wbfm.run(real[i])
+        run_ms = (time.perf_counter() - t0) * 1e3
+        if not isinstance(audio, np.ndarray) or audio.shape != (AUDIO, 2):
+            raise AssertionError(f"WBFM.run gave {type(audio)}")
+        check_tones("nco", f"WBFM(pll='nco').run chunk {i + 1} "
+                    f"({run_ms:.1f} ms, host array in, NumPy out)",
+                    audio.astype(np.float64))
+    if knco.launches.count != CHUNKS_NCO:
+        raise AssertionError(f"WBFM(pll='nco'): {knco.launches.count} K-NCO "
+                             f"launches in {CHUNKS_NCO} chunks")
+
+
+def check_classes(device, gen) -> None:
+    """Phase 12: every model class once on the card at 262 144 against
+    the port on the CPU, and the routes chosen by dtype and size."""
+    import numpy as np
+    import torch
+    from radiocore_tpu_torch import models
+    from radiocore_tpu_torch.kernels import fir
+    from radiocore_tpu_torch.ops import fft as offt
+    from radiocore_tpu_torch.ops.fir import fir_causal, fir_route
+
+    iq = real_station_iq()[0]
+    rng = np.random.default_rng(SEED)
+    real = rng.standard_normal(STATION).astype(np.float32)
+    t = np.arange(STATION) / STATION
+    pilot = (np.sin(2 * np.pi * 19e3 * t + 0.3)
+             + 0.01 * rng.standard_normal(STATION)).astype(np.float32)
+
+    def both(make, *inputs):
+        outs = []
+        for dev in (None, "cpu"):   # None: the default device, the card
+            obj = make(dev)
+            out = [obj.run(x) for x in inputs]
+            outs.append([torch.as_tensor(o).cpu() for o in out])
+        return outs
+
+    cases = {
+        "FM": both(lambda d: models.FM(STATION, AUDIO, device=d), iq),
+        "MFM": both(lambda d: models.MFM(STATION, AUDIO, device=d), iq, iq),
+        "WBFM": both(lambda d: models.WBFM(STATION, AUDIO, device=d), iq, iq),
+        "Decimate real": both(
+            lambda d: models.Decimate(STATION, AUDIO, device=d), real),
+        "Decimate complex": both(
+            lambda d: models.Decimate(STATION, AUDIO, device=d), iq),
+        "Bandpass": both(lambda d: models.Bandpass(
+            STATION, 19e3 - 50, 19e3 + 50, num_taps=41, device=d), real),
+        "Deemphasis": both(
+            lambda d: models.Deemphasis(STATION, device=d), real, real),
+    }
+    for name, (card, cpu) in cases.items():
+        err = max(max_abs(a, b) for a, b in zip(card, cpu))
+        print(f"[classes] {name} {tuple(card[-1].shape)} card vs CPU "
+              f"max_abs {err:.3e} (bound {E2E_ABS_MAX:.0e})")
+        if not err <= E2E_ABS_MAX:
+            raise AssertionError(f"{name}: card and CPU differ by {err}")
+    errs = []
+    for dev in (None, "cpu"):
+        pll = models.PLL(device=dev)
+        pll.step(pilot)
+        errs.append([pll.real(2).cpu(), pll.image(2).cpu()])
+    err = max(max_abs(a, b) for a, b in zip(*errs))
+    print(f"[classes] PLL harmonics 2 card vs CPU max_abs {err:.3e} (bound "
+          f"{E2E_ABS_MAX:.0e})")
+    if not err <= E2E_ABS_MAX:
+        raise AssertionError(f"PLL: card and CPU differ by {err}")
+
+    # Routes chosen by dtype and size, before any kernel.
+    band = crandn(gen, device, N_BAND).to(torch.complex128)
+    if offt.route_name(N_BAND, band.dtype, True) != "torch":
+        raise AssertionError("a complex128 band routes to a kernel")
+    err = rel_l2(offt.fft(band), torch.fft.fft(band))
+    del band
+    x = torch.randn(4, 65_536, generator=gen, device=device)
+    hist64 = torch.randn(4, 50, generator=gen, device=device,
+                         dtype=torch.float64)
+    taps = np.asarray(rng.standard_normal(51) / 51)
+    fir.launches.reset()
+    e_hist = max_abs(fir_causal(x, taps, hist64),
+                     fir.fir_causal_plain(x.double(), taps, hist64))
+    long_taps = np.asarray(rng.standard_normal(5000) / 5000)
+    route = fir_route(x, long_taps, "kernel")
+    e_long = max_abs(fir_causal(x, long_taps, impl="kernel"),
+                     fir.fir_causal_plain(x.double(), long_taps))
+    print(f"[classes] routes: complex128 2^24 band through ops/fft.fft "
+          f"rel_l2 {err:.3e}; float64 history through K-FIR "
+          f"({fir.launches.count} launch) max_abs {e_hist:.3e}; 5000 taps "
+          f"-> {route!r} max_abs {e_long:.3e} (bound {FIR_ABS_MAX:.0e})")
+    if (fir.launches.count != 1 or route != "fft" or err > 1e-12
+            or not max(e_hist, e_long) <= FIR_ABS_MAX):
+        raise AssertionError("a route chosen by dtype or size is wrong")
+
+
+def check_dead_step(device, gen) -> None:
+    """Phase 13: whole steps on a 64-station spectrum in which two
+    stations' bins are exactly zero, in all three ``extract_demod``
+    modes: the dead stations' audio is finite and, like the live
+    stations', equal to the port's on the CPU."""
+    import torch
+    from radiocore_tpu_torch.ops.channelize import uniform_extraction_start
+
+    c, m, n = N_STATIONS, STATION, N_BAND
+    dead = [c // 2, c - 1]
+    live = [i for i in range(c) if i not in dead]
+    spec = torch.fft.fft(fm_band(gen, c, m, device))
+    a0 = uniform_extraction_start(n, tuple(-o for o in offsets(c, m)), m)
+    for i in dead:
+        bins = (a0 + i * m + torch.arange(m + 1, device=device)) % n
+        spec[bins] = 0
+    spec_cpu = spec.cpu()
+    failures = []
+    for xd in ("off", "fused", "spec"):
+        audio = {}
+        for dev, sp in ((device, spec), ("cpu", spec_cpu)):
+            step, state = _fast_step(c, dev, xd)
+            _, middle, last = step.stages.values()
+            audio[str(dev)], _ = last(middle(sp), state)
+        card, cpu = audio[str(device)].cpu(), audio["cpu"]
+        finite = bool(torch.isfinite(card[dead]).all())
+        e_dead = max_abs(card[dead], cpu[dead]) if finite else float("nan")
+        e_live = max_abs(card[live], cpu[live])
+        print(f"[dead] step extract_demod={xd!r}, stations {dead} zeroed: "
+              f"their audio finite {finite}, card vs CPU max_abs "
+              f"{e_dead:.3e}, live stations {e_live:.3e} (bound "
+              f"{E2E_ABS_MAX:.0e})")
+        if not (finite and e_dead <= E2E_ABS_MAX and e_live <= E2E_ABS_MAX):
+            failures.append(f"{xd}: finite {finite}, dead {e_dead}, live "
+                            f"{e_live}")
+    if failures:
+        raise AssertionError("dead stations through a whole step: "
+                             + "; ".join(failures))
 
 
 def main() -> int:
@@ -1016,61 +1519,94 @@ def main() -> int:
     check_spills(res.log)
     lap("start and build")
 
-    # Phase 2: kernels against their plain versions.
     gen = torch.Generator(device=device).manual_seed(SEED)
-    kstats = check_kernels(device, gen)
-    lap("kernels at the main shapes")
+    kstats, launches = {}, {}
 
-    # Phase 3: the main path.
-    step, state, band1, audio1, launches = run_main_path(device, gen)
-    print(f"[main] {N_STATIONS} x {STATION} -> {AUDIO}, {CHUNKS} chunks: "
-          f"audio {tuple(audio1.shape)} finite; launches {launches}")
-    band = fm_band(gen, N_STATIONS, STATION, device)
-    stages = stage_ms(step, band, state)
-    print(f"[main] {step_ms(step, band, state)}; stages (median of 20) "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
-    profile_step("main", step, band, state)
-    against_cpu("main", N_STATIONS, band1, audio1)
-
-    # Phase 4: one real station.
-    check_station("station", step, N_STATIONS, device)
-    del step, state, band1, audio1, band
-    lap("main path and station")
-
-    # Phase 5: the 96-station kernels against their plain versions.
-    kstats.update(check_band_kernels(device, gen))
-    lap("kernels at the 96-station shapes")
-
-    # Phase 6: the discriminator alone, and dead stations.
-    check_discriminator(device, gen)
-    check_dead_stations(device, gen)
-    lap("discriminator and dead stations")
-
-    # Phase 7: the 96-station paths, the spec path first.
-    c = N_STATIONS_96
-    for xd, chunks in (("spec", CHUNKS), ("fused", CHUNKS_MODES),
-                       ("off", CHUNKS_MODES)):
-        what = f"96 {xd}"
-        step, state, band1, audio1, counts = run_main_path(
-            device, gen, c=c, chunks=chunks, extract_demod=xd)
-        print(f"[{what}] {c} x {STATION} -> {AUDIO}, {chunks} chunks: "
+    def phase_main():
+        # Phase 2: kernels against their plain versions.
+        kstats.update(check_kernels(device, gen))
+        lap("kernels at the main shapes")
+        # Phase 3: the main path.
+        step, state, band1, audio1, counts = run_main_path(device, gen)
+        launches.update(counts)
+        print(f"[main] {N_STATIONS} x {STATION} -> {AUDIO}, {CHUNKS} chunks: "
               f"audio {tuple(audio1.shape)} finite; launches {counts}")
-        for name, count in counts.items():
-            launches.setdefault(name, count)
-        band = fm_band(gen, c, STATION, device)
-        line = f"[{what}] {step_ms(step, band, state)}"
-        if xd == "spec":
-            line += "; stages (median of 20) " + ", ".join(
-                f"{k} {v:.3f} ms" for k, v in stage_ms(step, band,
-                                                       state).items())
-        print(line)
-        if xd == "spec":
-            profile_step(what, step, band, state)
-        against_cpu(what, c, band1, audio1, xd)
-        if xd == "spec":
-            check_station(what + " station", step, c, device, xd)
-        del step, state, band1, audio1, band
-        lap(f"path {what}")
+        band = fm_band(gen, N_STATIONS, STATION, device)
+        stages = stage_ms(step, band, state)
+        print(f"[main] {step_ms(step, band, state)}; stages (median of 20) "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+        profile_step("main", step, band, state)
+        against_cpu("main", N_STATIONS, band1, audio1)
+        # Phase 4: one real station.
+        check_station("station", step, N_STATIONS, device)
+        lap("main path and station")
+
+    def phase_band():
+        # Phase 5: the 96-station kernels against their plain versions.
+        kstats.update(check_band_kernels(device, gen))
+        lap("kernels at the 96-station shapes")
+
+    def phase_dead():
+        # Phase 6: the discriminator alone, and dead stations.
+        check_discriminator(device, gen)
+        check_dead_stations(device, gen)
+        lap("discriminator and dead stations")
+
+    def phase_paths96():
+        # Phase 7: the 96-station paths, the spec path first.
+        c = N_STATIONS_96
+        for xd, chunks in (("spec", CHUNKS), ("fused", CHUNKS_MODES),
+                           ("off", CHUNKS_MODES)):
+            what = f"96 {xd}"
+            step, state, band1, audio1, counts = run_main_path(
+                device, gen, c=c, chunks=chunks, extract_demod=xd)
+            print(f"[{what}] {c} x {STATION} -> {AUDIO}, {chunks} chunks: "
+                  f"audio {tuple(audio1.shape)} finite; launches {counts}")
+            for name, count in counts.items():
+                launches.setdefault(name, count)
+            band = fm_band(gen, c, STATION, device)
+            line = f"[{what}] {step_ms(step, band, state)}"
+            if xd == "spec":
+                line += "; stages (median of 20) " + ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in stage_ms(step, band,
+                                                           state).items())
+            print(line)
+            if xd == "spec":
+                profile_step(what, step, band, state)
+            against_cpu(what, c, band1, audio1, xd)
+            if xd == "spec":
+                check_station(what + " station", step, c, device, xd)
+            del step, state, band1, audio1, band
+            lap(f"path {what}")
+
+    def phase_nco():
+        kstats["K-NCO"] = check_nco(device, gen)
+        lap("K-NCO")
+
+    def phase_firpilot():
+        check_fir_pilot(device, gen)
+        lap("K-FIR at the pilot bandpass")
+
+    def phase_exact():
+        run_exact_path(device, gen, launches)
+        lap("path exact")
+
+    def phase_ncopath():
+        run_nco_paths(device, gen, launches)
+        lap("paths nco")
+
+    def phase_classes():
+        check_classes(device, gen)
+        lap("classes and routes")
+
+    def phase_deadstep():
+        check_dead_step(device, gen)
+        lap("dead stations through whole steps")
+
+    for run_phase in (phase_main, phase_band, phase_dead, phase_paths96,
+                      phase_nco, phase_firpilot, phase_exact, phase_ncopath,
+                      phase_classes, phase_deadstep):
+        run_phase()
 
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [

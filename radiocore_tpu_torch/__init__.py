@@ -7,4 +7,9 @@ Imports ``torch`` and never ``jax``. Kernels are CUDA C++ for Hopper
 (``csrc/``), built with ``nvcc`` at first use (``kernels/build.py``).
 """
 
+from radiocore_tpu_torch.models import (FM, MFM, PLL, WBFM, Bandpass,
+                                        Decimate, Deemphasis, make_fm_step,
+                                        make_mfm_step, make_wbfm_step,
+                                        wbfm_init_state)
+
 __version__ = "0.1.0"

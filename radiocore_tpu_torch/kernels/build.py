@@ -132,6 +132,7 @@ _SIGNATURES = {
     "rc_rfft_untangle": [_P, _P, _L, _I, _P],
     "rc_irfft_tangle": [_P, _P, _L, _I, _P],
     "rc_mixed_column": [_P, _P, _I, _L, _I, _P, _P],
+    "rc_nco_pll": [_P, _L, _P, _P, _P, _P, _P, _L, _L, _F, _F, _F, _P],
 }
 
 

@@ -1,6 +1,14 @@
-"""WBFM stereo broadcast-FM demodulator, fast modes; counterpart of
-``radiocore_tpu/models/wbfm.py`` (``make_wbfm_step`` modes ``fast`` and
-``fast_spec``, ``wbfm_init_state`` for the analytic-signal pilot).
+"""WBFM stereo broadcast-FM demodulator; counterpart of
+``radiocore_tpu/models/wbfm.py``.
+
+The exact pipeline, stage for stage: quadrature demod at full rate with
+the spectral hamming window; the 19 kHz pilot by a 41-tap zero-phase
+bandpass; the 38 kHz subcarrier from the pilot's analytic signal squared
+(``pll='analytic'``) or from the phase a feedback NCO loop tracks
+(``pll='nco'``); the stereo matrix L = comp + (L−R), R = comp − (L−R),
+FFT-decimated to the audio rate; streaming de-emphasis per leg; global DC
+removal and clip. Every step is batch-generic over leading axes (the
+station axis), so one call serves a whole station batch.
 
 The fast pipeline works from the composite (quadrature-demod) rfft
 spectrum: the zero-phase pilot bandpass is ``|B(ω)|²`` in frequency, the
@@ -13,21 +21,29 @@ module's docstring has the derivation.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops import fft as _fft
-from radiocore_tpu_torch.ops.analytic import pll_harmonic
+from radiocore_tpu_torch.ops.analytic import analytic_signal, pll_harmonic
 from radiocore_tpu_torch.ops.consts import HostConst
 from radiocore_tpu_torch.ops.deemphasis import (deemphasis_apply,
                                                 deemphasis_init)
 from radiocore_tpu_torch.ops.demod import quadrature_demod
-from radiocore_tpu_torch.ops.resample import _fold_window_onesided
+from radiocore_tpu_torch.ops.fir import zero_phase_fir
+from radiocore_tpu_torch.ops.nco_pll import (nco_pll_track, pll_design,
+                                             pll_init, pll_subcarrier)
+from radiocore_tpu_torch.ops.resample import (_fold_window_onesided,
+                                              real_resample_weights,
+                                              resample_real)
+from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.transfer import to_device_c64, to_host
 
-State = Dict[str, torch.Tensor]
+# De-emphasis histories, plus ``"pll"`` (a ``PLLState``) with pll='nco'.
+State = Dict[str, Any]
 
 STEREO_GAIN = 1.0175   # empirical L−R gain (reference: wbfm.py:83)
 CLIP = 0.999
@@ -37,33 +53,76 @@ PILOT_HI = 19e3 + 50
 
 
 def wbfm_init_state(output_size: int, rate: float = 75e-6,
-                    batch_shape: Tuple[int, ...] = (), *,
+                    batch_shape: Tuple[int, ...] = (),
+                    pll: str = "analytic", *,
                     device: torch.device | str) -> State:
-    """Initial state (per station when batched): de-emphasis histories
-    (the analytic-signal pilot of the fast modes carries no state)."""
+    """Initial state (per station when batched): de-emphasis histories,
+    plus the NCO loop state when ``pll='nco'``."""
     _, hist = deemphasis_init(output_size, rate, batch_shape=batch_shape,
                               device=device)
-    return {"deemph_l": hist, "deemph_r": hist.clone()}
+    state = {"deemph_l": hist, "deemph_r": hist.clone()}
+    if pll == "nco":
+        state["pll"] = pll_init(batch_shape, device=device)
+    return state
 
 
 def make_wbfm_step(input_size: int, output_size: int,
-                   deemphasis: float = 75e-6, mode: str = "fast"
+                   deemphasis: float = 75e-6, mode: str = "exact",
+                   pll: str = "analytic", pll_loop_bw: float = 50.0
                    ) -> Callable[[torch.Tensor, State],
                                  Tuple[torch.Tensor, State]]:
     """Build the WBFM step for static chunk sizes.
 
-    ``mode='fast'`` maps ``(iq (..., input_size) c64, state) → (audio
-    (..., output_size, 2) f32, state)``; ``mode='fast_spec'`` takes the
-    composite rfft spectrum ``(..., input_size//2 + 1)`` in place of the
-    IQ and carries ``needed_bins``, the highest bin it reads.
+    ``mode='exact'`` (the reference pipeline, stage for stage) and
+    ``mode='fast'`` (the same pipeline in the envelope domain, one
+    full-length transform per chunk) map ``(iq (..., input_size) c64,
+    state) → (audio (..., output_size, 2) f32, state)``;
+    ``mode='fast_spec'`` takes the composite rfft spectrum
+    ``(..., input_size//2 + 1)`` in place of the IQ and carries
+    ``needed_bins``, the highest bin it reads. ``pll='nco'`` (exact mode
+    only) tracks the pilot with the feedback loop of ``ops/nco_pll.py``
+    and carries its state as ``state["pll"]``. On a dead station (zero
+    IQ) the exact mode with the analytic pilot gives NaN audio, the fast
+    modes silence.
     """
-    if mode not in ("fast", "fast_spec"):
-        raise NotImplementedError(f"mode={mode!r}: only 'fast' and "
-                                  f"'fast_spec' are ported")
+    if pll not in ("analytic", "nco"):
+        raise ValueError(f"unknown pll {pll!r}; 'analytic' or 'nco'")
+    if pll == "nco" and mode != "exact":
+        raise ValueError("pll='nco' requires mode='exact' (fast mode has "
+                         "no explicit pilot time series)")
+    if mode not in ("exact", "fast", "fast_spec"):
+        raise ValueError(f"unknown mode {mode!r}")
     n, m = int(input_size), int(output_size)
     win = design.resample_window("hamm", n)
     bp_taps = design.bandpass_taps(PILOT_TAPS, PILOT_LO, PILOT_HI, n)
     de_taps = design.deemphasis_taps(m, deemphasis)
+    nco_gains = pll_design(n, 19e3, pll_loop_bw)
+    # The real-path resample weights of the exact mode: the windowed
+    # lowpass at the input rate and the decimation to the audio rate.
+    c_lowpass = HostConst(real_resample_weights(n, n, win).astype(np.float32))
+    c_decim = HostConst(real_resample_weights(n, m, win).astype(np.float32))
+
+    def step_exact(iq: torch.Tensor, state: State
+                   ) -> Tuple[torch.Tensor, State]:
+        dev = iq.device
+        comp = resample_real(quadrature_demod(iq), n, c_lowpass.on(dev))
+        pilot = zero_phase_fir(comp, bp_taps)
+        extra = {}
+        if pll == "nco":
+            # Feedback carrier tracking: the loop bandwidth rejects the
+            # pilot-band noise that the analytic path passes straight
+            # into the subcarrier's phase.
+            rms = torch.sqrt(torch.mean(pilot * pilot, dim=-1, keepdim=True))
+            norm = pilot / torch.clamp_min(rms,
+                                           torch.finfo(torch.float32).tiny)
+            traj, extra["pll"] = nco_pll_track(norm, nco_gains, state["pll"])
+            subcarrier = pll_subcarrier(traj, 2, "imag")
+        else:
+            subcarrier = pll_harmonic(analytic_signal(pilot), 2, "imag")
+        lmr = subcarrier * comp * STEREO_GAIN
+        # Both stereo legs through one batched resample.
+        legs = torch.stack([comp + lmr, comp - lmr], dim=-2)
+        return _finish(resample_real(legs, m, c_decim.on(dev)), state, extra)
 
     n_rfft = n // 2 + 1
     w1 = _fold_window_onesided(win, n_rfft)
@@ -144,11 +203,11 @@ def make_wbfm_step(input_size: int, output_size: int,
                   ) -> Tuple[torch.Tensor, State]:
         return step_fast_spec(_fft.rfft(quadrature_demod(iq)), state)
 
-    def _finish(lr, state):
+    def _finish(lr, state, extra=None):
         """De-emphasis of both stereo legs, ``lr`` (..., 2, m), in one
         filter call over all rows (on a card one K-FIR launch, which
         measured faster than one per leg: PERF.md); the state keeps a
-        history per leg."""
+        history per leg, and whatever ``extra`` adds."""
         hist = torch.stack([state["deemph_l"], state["deemph_r"]], dim=-2)
         y, hist = deemphasis_apply(lr, de_taps, hist)
         l, r = y[..., 0, :], y[..., 1, :]
@@ -156,8 +215,46 @@ def make_wbfm_step(input_size: int, output_size: int,
         audio = torch.stack([l, r], dim=-1)
         audio = audio - torch.mean(audio, dim=(-2, -1), keepdim=True)
         audio = torch.clamp(audio, -CLIP, CLIP)
-        return audio.to(torch.float32), {"deemph_l": hist_l,
-                                         "deemph_r": hist_r}
+        new_state = {"deemph_l": hist_l, "deemph_r": hist_r}
+        if extra:
+            new_state.update(extra)
+        return audio.to(torch.float32), new_state
 
     step_fast_spec.needed_bins = int(max(s1, e2, m2) if use_env else n_rfft)
-    return step_fast if mode == "fast" else step_fast_spec
+    return {"exact": step_exact, "fast": step_fast,
+            "fast_spec": step_fast_spec}[mode]
+
+
+class WBFM:
+    """Stateful WBFM demodulator with the reference's ``run`` API:
+    ``run(input_sig, numpy_output=True)`` gives ``(output_size, 2)``
+    stereo audio and carries the state across calls. Runs on ``device``
+    (the first CUDA device when None)."""
+
+    def __init__(self, input_size: Union[int, float],
+                 output_size: Union[int, float],
+                 deemphasis: float = 75e-6, cuda: bool = False,
+                 mode: str = "exact", pll: str = "analytic", *,
+                 device: Optional[torch.device | str] = None):
+        del cuda  # kept for the reference's signature; ``device`` decides
+        self._input_size = int(input_size)
+        self._output_size = int(output_size)
+        self._device = resolve_device(device)
+        self._step = make_wbfm_step(self._input_size, self._output_size,
+                                    deemphasis, mode=mode, pll=pll)
+        self._state = wbfm_init_state(self._output_size, deemphasis, pll=pll,
+                                      device=self._device)
+
+    @property
+    def channels(self) -> int:
+        """Audio channel count (2: stereo)."""
+        return 2
+
+    def run(self, input_sig, numpy_output: bool = True):
+        """Demodulate one chunk to stereo audio, carrying state across
+        calls."""
+        if len(input_sig) != self._input_size:
+            raise ValueError("input_sig size and input_size mismatch")
+        iq = to_device_c64(input_sig, self._device)
+        audio, self._state = self._step(iq, self._state)
+        return to_host(audio) if numpy_output else audio

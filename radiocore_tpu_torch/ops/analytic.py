@@ -1,9 +1,28 @@
-"""Pilot-tone harmonic synthesis; counterpart of
-``radiocore_tpu/ops/analytic.py`` (``pll_harmonic``)."""
+"""Analytic signal (Hilbert transform) and pilot-tone harmonic synthesis;
+counterpart of ``radiocore_tpu/ops/analytic.py``."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from radiocore_tpu_torch.ops import design
+from radiocore_tpu_torch.ops import fft as _fft
+
+
+@functools.lru_cache(maxsize=16)
+def _hilbert(n: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The Hilbert multiplier on ``device``, copied there once per size."""
+    return torch.from_numpy(design.hilbert_multiplier(n)).to(
+        device=device, dtype=dtype)
+
+
+def analytic_signal(x: torch.Tensor) -> torch.Tensor:
+    """Analytic signal along the last axis: FFT, zero the negative
+    frequencies, IFFT; as ``scipy.signal.hilbert``. ``x`` must be real."""
+    return _fft.ifft(_fft.fft(x) * _hilbert(int(x.shape[-1]), x.device,
+                                            x.dtype))
 
 
 def pll_harmonic(analytic: torch.Tensor, mult: int = 1,

@@ -15,14 +15,15 @@ from radiocore_tpu_torch.ops.fir import fir_stream
 
 def deemphasis_init(input_size: int, rate: float = 75e-6,
                     num_taps: int = 51,
-                    batch_shape: Tuple[int, ...] = (), *,
+                    batch_shape: Tuple[int, ...] = (),
+                    dtype: torch.dtype = torch.float32, *,
                     device: torch.device | str) -> Tuple[np.ndarray,
                                                          torch.Tensor]:
     """Taps and the initial carried state: a history of ones, the steady
     state the reference seeds via ``lfilter_zi``."""
     taps = design.deemphasis_taps(input_size, rate, num_taps)
     hist = torch.ones(tuple(batch_shape) + (num_taps - 1,),
-                      dtype=torch.float32, device=device)
+                      dtype=dtype, device=device)
     return taps, hist
 
 

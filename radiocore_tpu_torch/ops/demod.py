@@ -19,7 +19,13 @@ def quadrature_demod(iq: torch.Tensor,
     """Demodulate FM from complex baseband along the last axis.
 
     Same length as the input, first sample 0; default gain ``1/π``.
+
+    A dead channel demodulates to 0 whatever the signs of its zeros: the
+    product is formed as ``0 + x[n]·conj(x[n−1])`` in one pass, which
+    turns a ``−0`` part into ``+0``, where ``angle(−0 + 0j)`` would be π
+    (an extraction kernel's zeros come out signed).
     """
-    d = iq[..., 1:] * torch.conj(iq[..., :-1])
+    d = torch.addcmul(iq.new_zeros(()), iq[..., 1:],
+                      torch.conj(iq[..., :-1]))
     ph = torch.angle(d) * (1.0 / math.pi if gain is None else gain)
     return F.pad(ph, (1, 0))

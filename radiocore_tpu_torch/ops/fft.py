@@ -8,7 +8,9 @@ not a power of two) of at least :data:`MIXED_MIN` points go to K-MIXED
 (``kernels/fft_mixed.py``), as ``_use_mixed`` sends them to
 ``fft_large_mixed_pallas``. Everything else is ``torch.fft``, which
 handles every size, so the JAX planner's native-FFT probe and four-step
-fallback have no counterpart here.
+fallback have no counterpart here. The kernels take complex64 only: the
+route is chosen by dtype as well as size, so a complex128 tensor goes to
+``torch.fft`` on either device.
 """
 
 from __future__ import annotations
@@ -21,15 +23,25 @@ KERNEL_MIN = 1 << 24
 MIXED_MIN = 1 << 23
 
 
+def route_name(n: int, dtype: torch.dtype, is_cuda: bool) -> str:
+    """The slot a transform of ``n`` points takes: ``'rows'`` (K-FFT),
+    ``'mixed'`` (K-MIXED) or ``'torch'`` (``torch.fft``)."""
+    n = int(n)
+    if not is_cuda or dtype != torch.complex64:
+        return "torch"
+    if (n & (n - 1)) == 0:
+        return "rows" if n >= KERNEL_MIN else "torch"
+    if n >= MIXED_MIN and fft_mixed.mixed_split(n) is not None:
+        return "mixed"
+    return "torch"
+
+
 def _route(x: torch.Tensor, sign: float):
     """The kernel's result for ``x``, or None where torch.fft serves."""
-    n = int(x.shape[-1])
-    if not x.is_cuda:
-        return None
-    if (n & (n - 1)) == 0:
-        if n >= KERNEL_MIN:
-            return fft_rows.fft_large_pow2(x.contiguous(), sign)
-    elif n >= MIXED_MIN and fft_mixed.mixed_split(n) is not None:
+    name = route_name(x.shape[-1], x.dtype, x.is_cuda)
+    if name == "rows":
+        return fft_rows.fft_large_pow2(x.contiguous(), sign)
+    if name == "mixed":
         return fft_mixed.fft_large_mixed(x.contiguous(), sign)
     return None
 
@@ -37,7 +49,8 @@ def _route(x: torch.Tensor, sign: float):
 def fft(x: torch.Tensor) -> torch.Tensor:
     """Forward FFT along the last axis."""
     if not x.is_complex():
-        x = x.to(torch.complex64)
+        x = x.to(torch.complex128 if x.dtype == torch.float64
+                 else torch.complex64)
     y = _route(x, -1.0)
     return torch.fft.fft(x, dim=-1) if y is None else y
 

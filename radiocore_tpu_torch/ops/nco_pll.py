@@ -1,0 +1,75 @@
+"""True feedback NCO phase-locked loop for the 19 kHz stereo pilot;
+counterpart of ``radiocore_tpu/ops/nco_pll.py``.
+
+The classic 2nd-order loop (phase detector → PI loop filter → NCO) as the
+accuracy-mode alternative to the analytic-signal pilot tracker: carrier
+tracking with a controlled loop bandwidth, its state streaming across
+chunks. The recurrence is sequential per station; on a CUDA tensor it
+runs as the kernel K-NCO (``kernels/nco_pll.py``), on the CPU as that
+module's plain loop.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from radiocore_tpu_torch.kernels import nco_pll as knco
+
+
+class PLLState(NamedTuple):
+    phase: torch.Tensor     # NCO phase, radians
+    freq: torch.Tensor      # integrator: freq offset, rad/sample
+
+
+class PLLGains(NamedTuple):
+    kp: float
+    ki: float
+    w0: float               # nominal pilot frequency, rad/sample
+
+
+def pll_design(fs: float, f0: float = 19e3, loop_bw_hz: float = 50.0,
+               damping: float = 0.7071) -> PLLGains:
+    """PI gains for a 2nd-order loop (standard normalized design)."""
+    bnt = loop_bw_hz / fs
+    denom = 1.0 + 2.0 * damping * bnt + bnt * bnt
+    kp = 4.0 * damping * bnt / denom
+    ki = 4.0 * bnt * bnt / denom
+    return PLLGains(kp=float(kp), ki=float(ki),
+                    w0=float(2.0 * np.pi * f0 / fs))
+
+
+def pll_init(batch_shape: Tuple[int, ...] = (), *,
+             device: torch.device | str) -> PLLState:
+    """Initial loop state (phase, frequency) per station."""
+    zeros = torch.zeros(tuple(batch_shape), dtype=torch.float32,
+                        device=device)
+    return PLLState(phase=zeros, freq=zeros.clone())
+
+
+def nco_pll_track(pilot: torch.Tensor, gains: PLLGains,
+                  state: PLLState) -> Tuple[torch.Tensor, PLLState]:
+    """Track the pilot; returns (phase trajectory, new state).
+
+    ``pilot`` (..., N) float32 — normalize its amplitude beforehand (e.g.
+    the bandpassed pilot divided by its RMS) so the loop gains hold.
+    Phase detector: ``e[n] = pilot[n] · cos(φ[n])``; the trajectory holds
+    the phase the detector saw for each sample.
+    """
+    kp, ki, w0 = gains
+    traj, phase, freq = knco.nco_pll_track_rows(
+        pilot.to(torch.float32), kp, ki, w0, state.phase, state.freq)
+    return traj, PLLState(phase=phase, freq=freq)
+
+
+def pll_subcarrier(phase_traj: torch.Tensor, mult: int = 2,
+                   part: str = "imag") -> torch.Tensor:
+    """Unit-amplitude harmonic of the tracked phase, in the convention of
+    :func:`~radiocore_tpu_torch.ops.analytic.pll_harmonic`: for a pilot
+    ``sin(θ)``, ``imag`` gives ``−sin(m·θ)`` and ``real`` ``−cos(m·θ)``."""
+    m_theta = mult * phase_traj
+    if part == "real":
+        return -torch.cos(m_theta)
+    return -torch.sin(m_theta)

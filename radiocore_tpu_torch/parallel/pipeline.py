@@ -1,9 +1,13 @@
 """Fused multi-station pipeline on one device; counterpart of
-``radiocore_tpu/parallel/pipeline.py`` (``make_multi_station_step``,
-``mode='fast'``, single device, hoisted station rfft, and the fused
-extract+demod paths of ``RADIOCORE_TPU_EXTRACT_DEMOD``).
+``radiocore_tpu/parallel/pipeline.py`` (``make_multi_station_step`` on a
+single device: ``mode='exact'``, and ``mode='fast'`` with the hoisted
+station rfft and the fused extract+demod paths of
+``RADIOCORE_TPU_EXTRACT_DEMOD``).
 
     band IQ (n_band,) ──K-FFT or K-MIXED──► spectrum
+    exact:   ──K-EXTRACT──► (C, m) station IQ ──exact WBFM step over the
+             station batch (K-FIR pilot bandpass and de-emphasis)──► audio
+    fast:
       off:   ──K-EXTRACT──► (C, m) station IQ ──demod──► quad
       fused: ──K-XDEMOD──► quad
              quad ──K-FFT rfft──► composite spectra
@@ -40,7 +44,7 @@ def make_multi_station_step(
         station_chunk: int,
         audio_chunk: int,
         deemphasis: float = 75e-6,
-        mode: str = "fast",
+        mode: str = "exact",
         extract_demod: str = "off",
         *,
         device: torch.device | str,
@@ -54,8 +58,14 @@ def make_multi_station_step(
     (== bins), ``station_chunk`` the per-station IQ chunk and
     ``audio_chunk`` the audio samples per station per chunk.
 
+    ``mode`` is the WBFM step's: ``"exact"`` runs the reference pipeline
+    over the extracted station batch, ``"fast"`` the envelope-domain one.
+
     ``extract_demod`` is the JAX package's ``RADIOCORE_TPU_EXTRACT_DEMOD``
-    as an argument: ``"off"`` extracts the station IQ and demodulates it;
+    as an argument, for ``mode="fast"`` (the reference takes the fused
+    routes in no other mode; here anything but ``"off"`` with
+    ``mode="exact"`` raises): ``"off"`` extracts the station IQ and
+    demodulates it;
     ``"fused"`` turns the band spectrum into the quad in one kernel
     (K-XDEMOD) and takes its rfft; ``"spec"`` turns it into the composite
     spectra the tail reads (K-XDEMOD-SPEC). A plan the fused kernels do
@@ -66,11 +76,15 @@ def make_multi_station_step(
     per-stage timing: ``band_fft``, ``extract`` and ``demod_tail`` for
     ``"off"``; ``band_fft``, ``extract_demod`` and ``tail`` otherwise.
     """
-    if mode != "fast":
-        raise NotImplementedError(f"mode={mode!r}: only 'fast' is ported")
+    if mode not in ("exact", "fast"):
+        raise ValueError(f"unknown mode {mode!r}; 'exact' or 'fast'")
     if extract_demod not in ("off", "fused", "spec"):
         raise ValueError(f"extract_demod={extract_demod!r}: expected "
                          f"'off', 'fused' or 'spec'")
+    if mode == "exact" and extract_demod != "off":
+        raise ValueError(f"extract_demod={extract_demod!r} needs "
+                         f"mode='fast': the exact step works on the "
+                         f"station IQ")
     n_stations = len(offsets_hz)
     n_band = int(n_band)
     sc = int(station_chunk)
@@ -86,7 +100,9 @@ def make_multi_station_step(
                 f"n_band={n_band}, station_chunk={sc}, "
                 f"{n_stations} stations (needs a uniform plan that "
                 f"{ok.__name__} accepts)")
-    tail = make_wbfm_step(sc, audio_chunk, deemphasis, mode="fast_spec")
+    tail = make_wbfm_step(
+        sc, audio_chunk, deemphasis,
+        mode="exact" if mode == "exact" else "fast_spec")
     h = sc // 2
     kernel_rfft = ((sc & (sc - 1)) == 0
                    and fft_rows.MIN_ROW <= h <= fft_rows.MAX_ROW)
@@ -103,9 +119,12 @@ def make_multi_station_step(
         def extract_stations(spectrum: torch.Tensor) -> torch.Tensor:
             return extract(spectrum).to(torch.complex64)
 
-        def demod_tail(st_iq: torch.Tensor, state: State
-                       ) -> Tuple[torch.Tensor, State]:
-            return tail(station_rfft(quadrature_demod(st_iq)), state)
+        if mode == "exact":
+            demod_tail = tail   # batch-generic: the stations ride along
+        else:
+            def demod_tail(st_iq: torch.Tensor, state: State
+                           ) -> Tuple[torch.Tensor, State]:
+                return tail(station_rfft(quadrature_demod(st_iq)), state)
 
         stages = {"band_fft": band_fft, "extract": extract_stations,
                   "demod_tail": demod_tail}

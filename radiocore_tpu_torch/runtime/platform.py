@@ -25,6 +25,12 @@ def default_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def resolve_device(device: Optional[torch.device | str] = None
+                   ) -> torch.device:
+    """``device`` as a ``torch.device``; :func:`default_device` for None."""
+    return default_device() if device is None else torch.device(device)
+
+
 def nvidia_smi_name_power() -> Optional[str]:
     """``name, power.limit`` of the cards as ``nvidia-smi`` reports them,
     or None where ``nvidia-smi`` is absent."""

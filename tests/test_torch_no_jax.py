@@ -22,7 +22,16 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert {"radiocore_tpu_torch.parallel.pipeline",
             "radiocore_tpu_torch.kernels.fft_mixed",
-            "radiocore_tpu_torch.kernels.extract_demod"} <= set(mods)
+            "radiocore_tpu_torch.kernels.extract_demod",
+            "radiocore_tpu_torch.kernels.nco_pll",
+            "radiocore_tpu_torch.ops.nco_pll",
+            "radiocore_tpu_torch.runtime.transfer",
+            "radiocore_tpu_torch.models.fm",
+            "radiocore_tpu_torch.models.mfm",
+            "radiocore_tpu_torch.models.bandpass",
+            "radiocore_tpu_torch.models.decimate",
+            "radiocore_tpu_torch.models.deemphasis",
+            "radiocore_tpu_torch.models.pll"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -55,6 +64,9 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     import torch
     from radiocore_tpu_torch.kernels import (build, extract, extract_demod,
                                              fft_mixed, fft_rows, fir)
+    from radiocore_tpu_torch.ops.fir import zero_phase_fir
+    from radiocore_tpu_torch.ops.nco_pll import (nco_pll_track, pll_design,
+                                                 pll_init)
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
 
     def refuse(*_args, **_kwargs):
@@ -74,13 +86,18 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     extract_demod.extract_demod_rows(spec, 0, 4, 1 << 14)
     extract_demod.extract_demod_spec_rows(spec, 0, 4, 1 << 14, keep_bins=99)
     fir.fir_causal_rows(spec.real[:1024].reshape(2, 512), np.ones(5))
+    zero_phase_fir(spec.real[:40_000].reshape(2, 20_000), np.ones(41) / 41)
+    nco_pll_track(spec.real[:1024].reshape(2, 512), pll_design(262_144),
+                  pll_init((2,), device="cpu"))
     c, sc = 4, 65_536
     offs = [int(-(c * sc // 2 - sc // 2) + i * sc) for i in range(c)]
     band = torch.from_numpy((rng.standard_normal(c * sc) + 1j
                              * rng.standard_normal(c * sc)).astype(
                                  np.complex64))
-    for xd in ("off", "fused", "spec"):
+    for mode, xd in (("fast", "off"), ("fast", "fused"), ("fast", "spec"),
+                     ("exact", "off")):
         step, state = make_multi_station_step(c * sc, offs, sc, 16_384,
-                                              extract_demod=xd, device="cpu")
+                                              mode=mode, extract_demod=xd,
+                                              device="cpu")
         audio, _ = step(band, state)
         assert tuple(audio.shape) == (c, 16_384, 2)

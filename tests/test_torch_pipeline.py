@@ -129,7 +129,8 @@ def test_extract_demod_stages_compose_to_step(xd):
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
     c, sc, ac = PLANS[0]
     step, state = make_multi_station_step(c * sc, _offsets(c, sc), sc, ac,
-                                          extract_demod=xd, device="cpu")
+                                          mode="fast", extract_demod=xd,
+                                          device="cpu")
     band = torch.from_numpy(_fm_band(np.random.default_rng(1), c, sc))
     want, _ = step(band, state)
     st = step.stages
@@ -149,24 +150,78 @@ def test_extract_demod_unsupported_plan_raises(xd, c, sc, offs):
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
     offs = _offsets(c, sc) if offs is None else offs
     with pytest.raises(ValueError, match="extract_demod"):
-        make_multi_station_step(c * sc, offs, sc, sc // 4, extract_demod=xd,
-                                device="cpu")
+        make_multi_station_step(c * sc, offs, sc, sc // 4, mode="fast",
+                                extract_demod=xd, device="cpu")
 
 
-def test_other_modes_not_ported():
+def test_unknown_mode_raises_value_error():
+    """An unknown ``mode`` is a ``ValueError``, as in the reference."""
+    from radiocore_tpu.parallel.pipeline import (
+        make_multi_station_step as jax_step)
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
-    with pytest.raises(NotImplementedError):
+    args = (4 * 65_536, _offsets(4, 65_536), 65_536, 16_384)
+    with pytest.raises(ValueError, match="mode"):
+        jax_step(*args, mode="faster")
+    with pytest.raises(ValueError, match="mode"):
+        make_multi_station_step(*args, mode="faster", device="cpu")
+
+
+@pytest.mark.parametrize("xd", ["fused", "spec"])
+def test_exact_mode_takes_no_fused_route(xd):
+    """The reference takes the fused routes for ``mode == 'fast'`` only;
+    the port names the mismatch."""
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    with pytest.raises(ValueError, match="mode='fast'"):
         make_multi_station_step(4 * 65_536, _offsets(4, 65_536), 65_536,
-                                16_384, mode="exact", device="cpu")
+                                16_384, mode="exact", extract_demod=xd,
+                                device="cpu")
+    with pytest.raises(ValueError, match="mode='fast'"):
+        make_multi_station_step(4 * 65_536, _offsets(4, 65_536), 65_536,
+                                16_384, extract_demod=xd, device="cpu")
 
 
-def test_stages_compose_to_step():
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_stages_compose_to_step(mode):
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
     c, sc, ac = PLANS[0]
     step, state = make_multi_station_step(c * sc, _offsets(c, sc), sc, ac,
-                                          device="cpu")
+                                          mode=mode, device="cpu")
+    assert list(step.stages) == ["band_fft", "extract", "demod_tail"]
     band = torch.from_numpy(_fm_band(np.random.default_rng(1), c, sc))
     want, _ = step(band, state)
     st = step.stages
     got, _ = st["demod_tail"](st["extract"](st["band_fft"](band)), state)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("c,sc,ac", PLANS)
+def test_exact_step_matches_jax(c, sc, ac):
+    """``mode="exact"`` (both packages' default, left out here) against
+    the JAX step over three chained chunks from the same non-trivial
+    de-emphasis state."""
+    from radiocore_tpu.parallel.pipeline import (
+        make_multi_station_step as jax_step)
+    from radiocore_tpu_torch.parallel.pipeline import (
+        make_multi_station_step as torch_step)
+    from radiocore_tpu_torch.runtime.checkpoint import (state_from_numpy,
+                                                        state_to_numpy)
+
+    n = c * sc
+    offs = _offsets(c, sc)
+    step_j, state_j = jax_step(n, offs, sc, ac)
+    step_t, _ = torch_step(n, offs, sc, ac, device="cpu")
+    rng = np.random.default_rng(8)
+    hist = {k: (0.3 * rng.standard_normal(np.shape(v))).astype(np.float32)
+            for k, v in state_j.items()}
+    state_j = {k: jnp.asarray(v) for k, v in hist.items()}
+    state_t = state_from_numpy(hist, "cpu")
+    for _ in range(3):
+        band = _fm_band(rng, c, sc)
+        want, state_j = step_j(jnp.asarray(band), state_j)
+        got, state_t = step_t(torch.from_numpy(band), state_t)
+        assert tuple(got.shape) == (c, ac, 2)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+        got_state = state_to_numpy(state_t)
+        for key, ref in state_j.items():
+            np.testing.assert_allclose(got_state[key], np.asarray(ref),
+                                       atol=ATOL)

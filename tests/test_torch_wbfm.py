@@ -36,7 +36,10 @@ def test_fast_step_matches_jax(n, m):
                                        np.asarray(state_j[key]), atol=4e-5)
 
 
-def test_unported_modes_raise():
+def test_unknown_mode_raises_value_error():
+    """An unknown ``mode`` is a ``ValueError``, as in the reference."""
+    from radiocore_tpu.models.wbfm import make_wbfm_step as jax_step
     from radiocore_tpu_torch.models.wbfm import make_wbfm_step
-    with pytest.raises(NotImplementedError):
-        make_wbfm_step(65_536, 16_384, mode="exact")
+    for make in (jax_step, make_wbfm_step):
+        with pytest.raises(ValueError, match="mode"):
+            make(65_536, 16_384, mode="faster")
