@@ -67,7 +67,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 13. feeds whole steps (``off``, ``fused``, ``spec``) a 64-station spectrum
     in which two stations' bins are exactly zero: the dead stations'
     audio must be finite and, like the live ones', equal to the port's on
-    the CPU.
+    the CPU;
+14. drives the apps' path and the host edge under it: ``IngestPipe`` over
+    pageable chunks of 2^24 and 96 · 2^18 complex64 at depths 1-3 (every
+    chunk bit for bit, the host->pinned memcpy and the H2D copy apart,
+    and from the ``torch.profiler`` timeline the share of the copies that
+    the ``fast`` step overlaps at depth 2 against 1: ``[ingest]``);
+    ``Tuner.load`` + ``run_all`` at the main plan against ``run(i)`` and
+    complex128, with one band FFT's and one extraction's launches
+    (``[tuner]``); ``multi_fm_server.serve_fused`` at 64 x 262 144 over 8
+    chunks of a cf32 capture read through ``IQFileSource`` (stage means,
+    chunks a second, real-time channels with host ingest, launches per
+    chunk, audio equal to the same step on the bands already on the
+    card, a real station's tones: ``[serve_fused]``); ``receive_fm.run``
+    at the CLI's defaults for 5 s on the card and 2 s on the CPU from the
+    same source seed (``[receive_fm]``); the native ring and IQ converter
+    built from the port's own C++ (``[native]``); ``stereo_fm_iq`` against
+    float64 (``[synth]``).
 
 The build fails the run if ``ptxas`` reports register spills for the
 demod pass of K-XDEMOD(-SPEC), for K-FIR's kernel or for K-NCO's.
@@ -311,13 +327,18 @@ def fm_stations(gen, c: int, sc: int, device):
     return torch.exp(1j * math.pi * 0.25 * torch.cumsum(mpx, dim=-1))
 
 
-def fm_band(gen, c: int, sc: int, device):
+def fm_band(gen, c: int, sc: int, device, real_slot=None):
     """Band chunk of the ``c`` stations of :func:`fm_stations`, one per
-    slot, plus complex noise."""
+    slot, plus complex noise; with ``real_slot``, that slot carries the
+    real station (440 Hz left, 1 kHz right; NumPy oracles) instead."""
     import torch
     f64 = dict(dtype=torch.float64, device=device)
     n = c * sc
     iq = fm_stations(gen, c, sc, device)
+    if real_slot is not None:
+        from oracles import make_fm_iq, make_stereo_multiplex
+        iq[real_slot] = torch.from_numpy(make_fm_iq(
+            make_stereo_multiplex(sc, sc, 440.0, 1000.0), 0.25)).to(device)
     k = torch.fft.fftfreq(sc, 1.0 / sc, device=device).long()
     bins = (torch.tensor(offsets(c, sc), device=device)[:, None] + k) % n
     spec = torch.zeros(n, dtype=torch.complex128, device=device)
@@ -905,11 +926,11 @@ def run_main_path(device, gen, c=N_STATIONS, sc=STATION, ac=AUDIO,
     return step, state, bands[0], audios[0], launches
 
 
-def step_ms(step, band, state) -> str:
+def step_ms(step, band, state, record=None) -> str:
     """Ten steps from ``state``: the min and median of their CUDA-event
     times, and the host's time to enqueue one (its clock around the ten,
     before the synchronize): the device waits for the host where that is
-    the longer."""
+    the longer. The min goes into ``record["min_ms"]`` where given."""
     import torch
     times = []
     torch.cuda.synchronize()
@@ -924,6 +945,8 @@ def step_ms(step, band, state) -> str:
     host = (time.perf_counter() - t0) * 100.0
     torch.cuda.synchronize()
     ms = [s.elapsed_time(e) for s, e in times]
+    if record is not None:
+        record["min_ms"] = min(ms)
     return (f"step {min(ms):.3f} ms (min of 10; median "
             f"{statistics.median(ms):.3f}; host enqueues one in {host:.3f})")
 
@@ -1028,13 +1051,13 @@ def check_station(what, step, c, device, extract_demod="off", mode="fast"):
     return a
 
 
-def check_tones(what, where, audio) -> None:
+def check_tones(what, where, audio, fs=AUDIO) -> None:
     """Both tones of the real station (440 Hz left, 1 kHz right) in its
-    audio ``(AUDIO, 2)``, the edges left out; raise below the bound."""
+    audio ``(fs, 2)``, the edges left out; raise below the bound."""
     from oracles import tone_snr_db
     a = audio[2000:-2000]
-    snr = (tone_snr_db(a[:, 0], AUDIO, 440.0),
-           tone_snr_db(a[:, 1], AUDIO, 1000.0))
+    snr = (tone_snr_db(a[:, 0], fs, 440.0),
+           tone_snr_db(a[:, 1], fs, 1000.0))
     print(f"[{what}] {where}: left 440 Hz {snr[0]:.1f} dB, right 1 kHz "
           f"{snr[1]:.1f} dB (bound {SNR_MIN_DB:.0f} dB)")
     if not min(snr) > SNR_MIN_DB:
@@ -1465,6 +1488,377 @@ def check_dead_step(device, gen) -> None:
                              + "; ".join(failures))
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the apps' path and the host edge under it.
+# ---------------------------------------------------------------------------
+
+APPS_CHUNKS = 8          # serve_fused chunks (two file chunks, looped)
+INGEST_CHUNKS = 4        # distinct host chunks per size in [ingest]
+RX_SECONDS = 5           # receive_fm on the card
+RX_CPU_SECONDS = 2       # and on the CPU, from the same source seed
+SERVE_ABS_MAX = 1e-6     # server audio against the same step, band on card
+SYNTH_F64_MAX = 5e-4     # stereo_fm_iq against float64 (tests/test_torch_synth)
+
+
+def _merged(intervals):
+    """Union of ``[(start, end)]`` as sorted, disjoint intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def copy_overlap(events, count):
+    """Share of the time of the ``count`` longest host-to-device copies
+    (``Memcpy HtoD`` events) that other device work overlaps, and the
+    number of such copies in ``events``."""
+    copies = sorted(((a, b) for a, b, n in events if "Memcpy HtoD" in n),
+                    key=lambda ab: ab[0] - ab[1])
+    n_copies = len(copies)
+    copies = copies[:count]
+    busy = _merged((a, b) for a, b, n in events if "Memcpy" not in n)
+    total = sum(b - a for a, b in copies)
+    both = sum(max(0.0, min(b, y) - max(a, x))
+               for a, b in copies for x, y in busy)
+    return (both / total if total else 0.0), n_copies
+
+
+def _median_rates(records):
+    """Median host->pinned and H2D rates (GB/s) of a pipe's copies."""
+    host = statistics.median(r.nbytes / r.host_s for r in records) / 1e9
+    h2d = statistics.median(r.nbytes / r.h2d_ms() * 1e3 for r in records)
+    return host, h2d / 1e9
+
+
+def check_ingest(device, gen) -> dict:
+    """``IngestPipe`` over pageable NumPy chunks of 2^24 and 96 · 2^18
+    complex64 at depths 1, 2 and 3: every yielded chunk equal to its host
+    chunk bit for bit (compared on the consumer's stream, with no wait in
+    between), the host->pinned memcpy and the H2D copy apart, and at
+    depth 2 against 1 the share of the copies that the ``fast`` step of
+    the chunk before overlaps, from the ``torch.profiler`` timeline."""
+    import torch
+    from radiocore_tpu_torch.runtime.ingest import IngestPipe
+
+    host = {}
+    for n in (N_BAND, N_BAND_96):
+        refs = [crandn(gen, device, n) for _ in range(INGEST_CHUNKS)]
+        host[n] = ([r.cpu().numpy() for r in refs], refs)
+    for n, (chunks, refs) in host.items():
+        for depth in (1, 2, 3):
+            pipe = IngestPipe(depth=depth, device=device)
+            wrong = torch.zeros((), dtype=torch.int64, device=device)
+            seq = [i % INGEST_CHUNKS for i in range(3 * INGEST_CHUNKS)]
+            for band, i in zip(pipe.stream(chunks[i] for i in seq), seq):
+                scratch = band * 2.0      # allocate on the consumer stream
+                wrong += (band != refs[i]).sum() + (scratch != 2 * refs[i]).sum()
+            torch.cuda.synchronize()
+            h, d = _median_rates(pipe.stager.records)
+            print(f"[ingest] {n} c64 ({chunks[0].nbytes / 1e6:.0f} MB) depth "
+                  f"{depth}, {len(seq)} chunks: {int(wrong)} elements differ "
+                  f"from their host chunk; host->pinned {h:.2f} GB/s, H2D "
+                  f"{d:.2f} GB/s (medians, CUDA events on the copy stream)")
+            if int(wrong):
+                raise AssertionError(f"ingest {n} depth {depth}: {int(wrong)} "
+                                     f"elements differ")
+    del host[N_BAND_96]
+    chunks = host[N_BAND][0]
+    step, state0 = _fast_step(N_STATIONS, device)
+    shares = {}
+    for depth in (1, 2):
+        pipe = IngestPipe(depth=depth, device=device)
+
+        def stream_through_step():
+            state = state0
+            for band in pipe.stream(chunks):
+                _, state = step(band, state)
+
+        shares[depth], copies = copy_overlap(traced(stream_through_step, 1),
+                                             INGEST_CHUNKS)
+        if copies < INGEST_CHUNKS:
+            raise AssertionError(f"ingest trace: {copies} HtoD copies, "
+                                 f"expected {INGEST_CHUNKS} or more")
+    print(f"[ingest] {N_BAND} through the fast step, {INGEST_CHUNKS} chunks "
+          f"(torch.profiler): share of the H2D copies' time overlapped by "
+          f"compute: depth 2 {shares[2]:.3f}, depth 1 {shares[1]:.3f}")
+    if not shares[2] > 0.0:
+        raise AssertionError("ingest: at depth 2 no copy overlaps a step")
+    return host[N_BAND][0]
+
+
+def check_tuner(device, gen) -> None:
+    """``Tuner.load`` + ``run_all`` at the main plan against ``run(i)``
+    for four channels and a complex128 reference; the K-FFT and K-EXTRACT
+    counters move by one band FFT and one extraction."""
+    import tempfile
+    import numpy as np
+    import torch
+    from radiocore_tpu_torch.kernels import extract, fft_rows
+    from radiocore_tpu_torch.ops import design
+    from radiocore_tpu_torch.ops import fft as offt
+    from radiocore_tpu_torch.ops.channelize import make_extractor
+    from radiocore_tpu_torch.ops.resample import resample_spectrum
+    from radiocore_tpu_torch.runtime.profiling import device_trace
+    from radiocore_tpu_torch.tools.tuner import Tuner
+
+    f0 = 100e6
+    tuner = Tuner(device=device)
+    for off in offsets(N_STATIONS, STATION):
+        tuner.add_channel(f0 + off, STATION, None)
+    if (tuner.input_frequency, tuner.input_bandwidth) != (f0, N_BAND):
+        raise AssertionError(f"band plan {tuner.input_frequency}, "
+                             f"{tuner.input_bandwidth}")
+    band = fm_band(gen, N_STATIONS, STATION, device)
+    shifts = tuple(-o for o in offsets(N_STATIONS, STATION))
+    counters = (fft_rows.launches, extract.launches)
+    torch.cuda.synchronize()
+    for ctr in counters:
+        ctr.reset()
+    spectrum = offt.fft(band)
+    one_fft = fft_rows.launches.count
+    make_extractor(N_BAND, shifts, STATION)(spectrum)
+    one_extract = extract.launches.count
+    del spectrum
+    for ctr in counters:
+        ctr.reset()
+    tuner.load(band)
+    rows = tuner.run_all()
+    torch.cuda.synchronize()
+    counts = (fft_rows.launches.count, extract.launches.count)
+    if counts != (one_fft, one_extract) or 0 in counts:
+        raise AssertionError(f"Tuner launches K-FFT, K-EXTRACT {counts}, "
+                             f"one band FFT and extraction "
+                             f"{(one_fft, one_extract)}")
+    ms = time_ms(lambda: (tuner.load(band), tuner.run_all()), reps=10)
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            tuner.load(band)
+            tuner.run_all()
+        trace = json.loads(next(Path(tmp).glob("*.json")).read_text())
+    kernels = [ev["name"] for ev in trace["traceEvents"]
+               if ev.get("cat") == "kernel"]
+    if not any("pass_kernel" in name for name in kernels):
+        raise AssertionError(f"device_trace: no pass kernel among "
+                             f"{len(kernels)} kernel events")
+    x64 = torch.fft.fft(band.to(torch.complex128))
+    win = torch.from_numpy(np.fft.fftshift(design.window("hann", N_BAND))).to(
+        device)
+    errs = []
+    for i in (0, N_STATIONS // 3, N_STATIONS // 2, N_STATIONS - 1):
+        ref = resample_spectrum(torch.roll(x64, shifts[i]) * win, STATION)
+        one = tuner.run(i)
+        errs.append((rel_l2(rows[i], ref), rel_l2(one, ref),
+                     rel_l2(rows[i], one.to(torch.complex128))))
+    run_ms = time_ms(lambda: tuner.run(1), reps=5)
+    worst = max(max(e[:2]) for e in errs)
+    print(f"[tuner] {N_STATIONS} x {STATION} from a 2^24 band: load + run_all "
+          f"{ms:.3f} ms, launches K-FFT {counts[0]}, K-EXTRACT {counts[1]} "
+          f"(= one band FFT, one extraction; runtime.profiling.device_trace "
+          f"of one load + run_all: {len(kernels)} kernel events); run(i) "
+          f"{run_ms:.3f} ms a "
+          f"channel; four channels rel_l2 against complex128 run_all "
+          f"{max(e[0] for e in errs):.3e}, run(i) {max(e[1] for e in errs):.3e}"
+          f", run_all vs run(i) {max(e[2] for e in errs):.3e} (bound "
+          f"{REL_L2_MAX:.0e})")
+    if not worst <= REL_L2_MAX:
+        raise AssertionError(f"tuner: rel_l2 {worst}")
+
+
+class ListSink:
+    """Keeps every chunk of audio it is given."""
+
+    def __init__(self):
+        self.chunks = []
+
+    def write(self, audio):
+        import numpy as np
+        self.chunks.append(np.array(audio, copy=True))
+
+    def close(self):
+        pass
+
+
+def check_serve_fused(device, gen, main_step) -> None:
+    """``multi_fm_server.serve_fused`` at full width from a cf32 capture
+    (two seconds of FM stations, one of them the real station), as the
+    reference's server loop runs it with ``--no-zmq``."""
+    import tempfile
+    import numpy as np
+    import torch
+    from radiocore_tpu_torch.apps.iq import IQFileSource, write_iq_file
+    from radiocore_tpu_torch.apps.multi_fm_server import (StationSpec,
+                                                          serve_fused)
+    from radiocore_tpu_torch.runtime.metrics import Metrics
+    from radiocore_tpu_torch.runtime.profiling import StageTimer
+
+    slot = N_STATIONS // 3
+    bands = [fm_band(gen, N_STATIONS, STATION, device, real_slot=slot)
+             for _ in range(2)]
+    f0 = 100e6
+    specs = [StationSpec(f0 + off, "wbfm", STATION)
+             for off in offsets(N_STATIONS, STATION)]
+    # The launches of one step, from the same step on a band on the card.
+    step, state = _fast_step(N_STATIONS, device)
+    counters = path_counters(N_STATIONS, "off")
+    torch.cuda.synchronize()
+    for ctr in counters.values():
+        ctr.reset()
+    step(bands[0], state)
+    torch.cuda.synchronize()
+    per_step = {name: ctr.count for name, ctr in counters.items()}
+    refs = []
+    for k in range(APPS_CHUNKS):
+        audio, state = step(bands[k % 2], state)
+        refs.append(audio.cpu().numpy())
+    sinks = [ListSink() for _ in specs]
+    metrics, timer = Metrics(), StageTimer()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/band.cf32"
+        t0 = time.perf_counter()
+        write_iq_file(path, torch.cat(bands).cpu().numpy())
+        write_s = time.perf_counter() - t0
+        source = IQFileSource(path, N_BAND)
+        torch.cuda.synchronize()
+        for ctr in counters.values():
+            ctr.reset()
+        t0 = time.perf_counter()
+        serve_fused(specs, N_BAND, AUDIO, source, APPS_CHUNKS, sinks=sinks,
+                    metrics=metrics, mode="fast", timer=timer, device=device)
+        wall = time.perf_counter() - t0
+    counts = {name: ctr.count for name, ctr in counters.items()}
+    want = {name: APPS_CHUNKS * c for name, c in per_step.items()}
+    err = max(float(np.abs(s.chunks[k] - refs[k][i]).max())
+              for i, s in enumerate(sinks) for k in range(APPS_CHUNKS))
+    rep = timer.report()
+    staged = sum(v["total_s"] for v in rep.values())
+    rate = APPS_CHUNKS / wall
+    print(f"[serve_fused] {N_STATIONS} x {STATION} -> {AUDIO} from a cf32 "
+          f"capture ({write_s:.2f} s to write), {APPS_CHUNKS} chunks in "
+          f"{wall:.3f} s: {rate:.2f} chunks/s, {N_STATIONS * rate:.0f} "
+          f"real-time channels with host ingest; device-only step of [main] "
+          f"{main_step['min_ms']:.3f} ms = "
+          f"{N_STATIONS * 1e3 / main_step['min_ms']:.0f} channels")
+    print("[serve_fused] stage means: " + ", ".join(
+        f"{k} {v['mean_ms']:.2f} ms" for k, v in rep.items())
+        + f"; between stages (the pipe's host memcpy into its slot, the "
+          f"copy's launch) {(wall - staged) * 1e3 / APPS_CHUNKS:.2f} ms")
+    print(f"[serve_fused] launches {counts} (= {APPS_CHUNKS} x one step "
+          f"{per_step}); audio against the same step on the bands already "
+          f"on the card max_abs {err:.3e} (bound {SERVE_ABS_MAX:.0e})")
+    if counts != want:
+        raise AssertionError(f"serve_fused launches {counts}, want {want}")
+    if not err <= SERVE_ABS_MAX:
+        raise AssertionError(f"serve_fused audio off by {err}")
+    check_tones("serve_fused", f"slot {slot}, last chunk",
+                sinks[slot].chunks[-1].astype(np.float64))
+
+
+def check_receive_fm(device) -> None:
+    """``receive_fm.run`` at the CLI's defaults (2.4 MS/s -> 240 kS/s ->
+    48 kHz, exact WBFM, SyntheticFmSource) on the card, and its first
+    chunks against the port on the CPU from the same source seed."""
+    import numpy as np
+    from radiocore_tpu_torch.apps import receive_fm as rx
+    from radiocore_tpu_torch.apps.iq import SyntheticFmSource
+    from radiocore_tpu_torch.kernels import fir
+    from radiocore_tpu_torch.runtime.config import (PipelineConfig,
+                                                    StationConfig)
+    from radiocore_tpu_torch.runtime.metrics import Metrics
+    from radiocore_tpu_torch.runtime.profiling import StageTimer
+
+    config = PipelineConfig(input_rate=2.4e6, demod_rate=240e3,
+                            audio_rate=48e3,
+                            stations=(StationConfig(96.9e6, 240e3, "wbfm"),))
+
+    def source():
+        return SyntheticFmSource(int(config.input_rate), [0],
+                                 int(config.demod_rate),
+                                 tones=[(440.0, 1000.0)], seed=SEED)
+
+    sinks = {}
+    for where, secs in ((device, RX_SECONDS), ("cpu", RX_CPU_SECONDS)):
+        sinks[where] = sink = ListSink()
+        metrics, timer = Metrics(), StageTimer()
+        fir.launches.reset()
+        t0 = time.perf_counter()
+        rx.run(config, source(), sink, secs, metrics, timer,
+               wbfm_mode="exact", ring_seconds=secs + 1, device=where)
+        wall = time.perf_counter() - t0
+        snap = metrics.snapshot()
+        print(f"[receive_fm] on {where}: {len(sink.chunks)} s in {wall:.2f} s,"
+              f" realtime x{snap['realtime_factor']:.2f}, overflows "
+              f"{int(snap['ring_overflows'])}, K-FIR launches "
+              f"{fir.launches.count}; stage means " + ", ".join(
+                  f"{k} {v['mean_ms']:.2f} ms"
+                  for k, v in timer.report().items()))
+        if len(sink.chunks) != secs or snap["ring_overflows"]:
+            raise AssertionError(f"receive_fm on {where}: {len(sink.chunks)} "
+                                 f"chunks, {snap['ring_overflows']} overflows")
+        if where == device:
+            fir_count = fir.launches.count
+    card, cpu = sinks[device].chunks, sinks["cpu"].chunks
+    err = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu))
+    print(f"[receive_fm] first {len(cpu)} chunks card vs CPU max_abs "
+          f"{err:.3e} (bound {E2E_ABS_MAX:.0e})")
+    if not err <= E2E_ABS_MAX:
+        raise AssertionError(f"receive_fm: card and CPU differ by {err}")
+    check_tones("receive_fm", "last chunk", card[-1].astype(np.float64),
+                fs=int(config.audio_rate))
+    if fir_count <= 0:
+        raise AssertionError("receive_fm: K-FIR never launched")
+
+
+def check_native(chunk) -> None:
+    """The native ring and IQ converter build on the card's machine; the
+    ring's put and get rates for one 2^24 complex64 chunk."""
+    import numpy as np
+    from radiocore_tpu_torch.native import iq_convert_native
+    from radiocore_tpu_torch.tools.ringbuffer import RingBuffer
+
+    ring = RingBuffer(2 * chunk.size, dtype="complex64", print_overflow=False)
+    conv = iq_convert_native(np.zeros(8, np.int16), "cs16")
+    if ring.backend != "native" or conv is None:
+        raise AssertionError(f"native: ring backend {ring.backend!r}, "
+                             f"converter {conv is not None}")
+    out = np.empty_like(chunk)
+    put, get = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ring.put(chunk)
+        t1 = time.perf_counter()
+        ring.get(out)
+        get.append(time.perf_counter() - t1)
+        put.append(t1 - t0)
+    if not np.array_equal(out, chunk):
+        raise AssertionError("native ring: data differs")
+    print(f"[native] RingBuffer backend 'native', iq_convert_native built; "
+          f"{chunk.nbytes / 1e6:.0f} MB chunk: put "
+          f"{chunk.nbytes / statistics.median(put) / 1e9:.2f} GB/s, get "
+          f"{chunk.nbytes / statistics.median(get) / 1e9:.2f} GB/s "
+          f"(medians of 5)")
+
+
+def check_synth(device) -> None:
+    """``stereo_fm_iq`` at 262 144 on the card against the float64
+    oracles."""
+    import numpy as np
+    from oracles import make_fm_iq, make_stereo_multiplex
+    from radiocore_tpu_torch.ops.synth import stereo_fm_iq
+
+    got = stereo_fm_iq(STATION, float(STATION), 440.0, 1000.0, device=device)
+    ref = make_fm_iq(make_stereo_multiplex(STATION, STATION, 440.0, 1000.0),
+                     0.25)
+    err = float(np.abs(got.cpu().numpy() - ref).max())
+    print(f"[synth] stereo_fm_iq {STATION} on the card against float64 "
+          f"max_abs {err:.3e} (bound {SYNTH_F64_MAX:.0e})")
+    if not err <= SYNTH_F64_MAX:
+        raise AssertionError(f"synth: {err}")
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1520,7 +1914,7 @@ def main() -> int:
     lap("start and build")
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    kstats, launches = {}, {}
+    kstats, launches, main_step = {}, {}, {}
 
     def phase_main():
         # Phase 2: kernels against their plain versions.
@@ -1533,7 +1927,8 @@ def main() -> int:
               f"audio {tuple(audio1.shape)} finite; launches {counts}")
         band = fm_band(gen, N_STATIONS, STATION, device)
         stages = stage_ms(step, band, state)
-        print(f"[main] {step_ms(step, band, state)}; stages (median of 20) "
+        print(f"[main] {step_ms(step, band, state, main_step)}; stages "
+              f"(median of 20) "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
         profile_step("main", step, band, state)
         against_cpu("main", N_STATIONS, band1, audio1)
@@ -1603,9 +1998,23 @@ def main() -> int:
         check_dead_step(device, gen)
         lap("dead stations through whole steps")
 
+    def phase_apps():
+        # Phase 14: the apps' path and the host edge under it.
+        chunk = check_ingest(device, gen)[0]
+        lap("[ingest]")
+        check_tuner(device, gen)
+        lap("[tuner]")
+        check_serve_fused(device, gen, main_step)
+        lap("[serve_fused]")
+        check_receive_fm(device)
+        lap("[receive_fm]")
+        check_native(chunk)
+        check_synth(device)
+        lap("[native] and [synth]")
+
     for run_phase in (phase_main, phase_band, phase_dead, phase_paths96,
                       phase_nco, phase_firpilot, phase_exact, phase_ncopath,
-                      phase_classes, phase_deadstep):
+                      phase_classes, phase_deadstep, phase_apps):
         run_phase()
 
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")

@@ -21,7 +21,7 @@ the CPU the same code runs their plain PyTorch versions.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,6 +34,7 @@ from radiocore_tpu_torch.ops import fft as _fft
 from radiocore_tpu_torch.ops.channelize import (make_extractor,
                                                 uniform_extraction_start)
 from radiocore_tpu_torch.ops.demod import quadrature_demod
+from radiocore_tpu_torch.runtime.platform import resolve_device
 
 State = Dict[str, torch.Tensor]
 
@@ -47,11 +48,12 @@ def make_multi_station_step(
         mode: str = "exact",
         extract_demod: str = "off",
         *,
-        device: torch.device | str,
+        device: Optional[torch.device | str] = None,
 ) -> Tuple[Callable[[torch.Tensor, State], Tuple[torch.Tensor, State]],
            State]:
     """Build ``step(band_iq, state) -> (audio, state)`` plus the initial
-    state on ``device``.
+    state on ``device`` (the first CUDA device when None, as the model
+    classes resolve it).
 
     ``n_band`` is the band chunk (== band sample rate, one-second
     convention), ``offsets_hz`` the station offsets from the band centre
@@ -85,6 +87,7 @@ def make_multi_station_step(
         raise ValueError(f"extract_demod={extract_demod!r} needs "
                          f"mode='fast': the exact step works on the "
                          f"station IQ")
+    device = resolve_device(device)
     n_stations = len(offsets_hz)
     n_band = int(n_band)
     sc = int(station_chunk)

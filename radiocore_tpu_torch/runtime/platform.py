@@ -15,6 +15,12 @@ def has_cuda() -> bool:
     return torch.cuda.is_available()
 
 
+def HasCuda() -> bool:  # noqa: N802 - parity alias with the reference
+    """Alias of :func:`has_cuda` with the reference's name
+    (``radiocore_tpu/runtime/platform.py:35``)."""
+    return has_cuda()
+
+
 def default_device() -> torch.device:
     """The first CUDA device. Without one it raises: the port's entry
     points run on a card unless the caller names the CPU."""

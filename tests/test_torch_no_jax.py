@@ -31,7 +31,24 @@ def test_every_module_imports_without_jax():
             "radiocore_tpu_torch.models.bandpass",
             "radiocore_tpu_torch.models.decimate",
             "radiocore_tpu_torch.models.deemphasis",
-            "radiocore_tpu_torch.models.pll"} <= set(mods)
+            "radiocore_tpu_torch.models.pll",
+            "radiocore_tpu_torch.runtime.config",
+            "radiocore_tpu_torch.runtime.metrics",
+            "radiocore_tpu_torch.runtime.profiling",
+            "radiocore_tpu_torch.runtime.ingest",
+            "radiocore_tpu_torch.native",
+            "radiocore_tpu_torch.native.build",
+            "radiocore_tpu_torch.tools.buffer",
+            "radiocore_tpu_torch.tools.ringbuffer",
+            "radiocore_tpu_torch.tools.carrousel",
+            "radiocore_tpu_torch.tools.chopper",
+            "radiocore_tpu_torch.tools.tuner",
+            "radiocore_tpu_torch.ops.synth",
+            "radiocore_tpu_torch.apps",
+            "radiocore_tpu_torch.apps.iq",
+            "radiocore_tpu_torch.apps.receive_fm",
+            "radiocore_tpu_torch.apps.multi_fm_server",
+            "radiocore_tpu_torch.apps.multi_fm_receiver"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

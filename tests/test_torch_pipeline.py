@@ -166,6 +166,40 @@ def test_unknown_mode_raises_value_error():
         make_multi_station_step(*args, mode="faster", device="cpu")
 
 
+@pytest.mark.parametrize("how", ["keyword", "string", "default"])
+def test_device_keyword_and_default(how, monkeypatch):
+    """``device`` is still accepted as a keyword (a ``torch.device`` or a
+    string), and left out it resolves through ``resolve_device(None)``:
+    the card, or a ``RuntimeError`` without one, as the model classes
+    (the reference's ``serve_fused`` passes no device)."""
+    from radiocore_tpu_torch.parallel import pipeline
+    from radiocore_tpu_torch.runtime import platform
+
+    seen = []
+
+    def resolve(device=None):
+        seen.append(device)
+        return platform.resolve_device("cpu" if device is None else device)
+
+    monkeypatch.setattr(pipeline, "resolve_device", resolve)
+    args = (4 * 65_536, _offsets(4, 65_536), 65_536, 16_384)
+    kwargs = {"keyword": dict(device=torch.device("cpu")),
+              "string": dict(device="cpu"), "default": {}}[how]
+    _, state = pipeline.make_multi_station_step(*args, mode="fast",
+                                                **kwargs)
+    assert seen == [kwargs.get("device")]
+    assert all(v.device.type == "cpu" for v in state.values())
+
+
+def test_device_default_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        make_multi_station_step(4 * 65_536, _offsets(4, 65_536), 65_536,
+                                16_384, mode="fast")
+
+
 @pytest.mark.parametrize("xd", ["fused", "spec"])
 def test_exact_mode_takes_no_fused_route(xd):
     """The reference takes the fused routes for ``mode == 'fast'`` only;
