@@ -6,11 +6,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. builds the hand-written kernels from ``radiocore_tpu_torch/csrc`` with
    ``nvcc`` for ``sm_90a``;
-2. runs K-FFT (rows, band, rfft, and the ``ifft_pow2`` and ``irfft_pow2``
-   wrappers), K-EXTRACT and K-FIR (51 taps at the main path's shape, timed
-   before and after the FFT kernels; 129 taps; a ragged length through a
-   strided view) at the main path's shapes against their
-   plain PyTorch versions on the card, and times both, beside each
+2. runs K-FFT (rows, the planar wrapper, band, rfft, and the
+   ``ifft_pow2`` and ``irfft_pow2`` wrappers), K-EXTRACT and K-FIR (51
+   taps at the main path's shape, timed before and after the FFT
+   kernels; 129 taps; a ragged length through a strided view) at the
+   main path's shapes against their plain PyTorch versions on the card,
+   and times both, beside each
    kernel's bound (the least time the card could take) and, where one
    PyTorch call computes the same function, that call's time; K-EXTRACT
    runs through its station-group schedule and is also timed against the
@@ -84,6 +85,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     same source seed (``[receive_fm]``); the native ring and IQ converter
     built from the port's own C++ (``[native]``); ``stereo_fm_iq`` against
     float64 (``[synth]``).
+15. runs the parallel layer in a world of two ranks on this card over
+    ``gloo`` (``[parallel]``): ``make_multi_station_step(mesh=...)`` in
+    ``fast`` and ``exact`` at the main plan over 3 chained chunks through
+    the distributed front end (gathered audio against the one-process
+    step on the card, the front end's station IQ against complex128,
+    each rank's launches, collective bytes and times, step wall times),
+    the all-gather branch at 62 stations, the config-4 form (a 129-tap
+    halo overlap-save FIR and the distributed extraction of 64 channels),
+    ``fir_causal_sharded`` at 51 taps over 2^24 against K-FIR, and
+    ``pfb_channelize_halo`` (64 channels, P = 8) over two chunks against
+    the unsharded channelizer. A rank that fails fails the run.
 
 The build fails the run if ``ptxas`` reports register spills for the
 demod pass of K-XDEMOD(-SPEC), for K-FIR's kernel or for K-NCO's.
@@ -424,7 +436,15 @@ def check_kernels(device, gen) -> dict:
     report("K-FFT rows 64x2^18 fwd rel_l2", err, REL_L2_MAX,
            time_ms(lambda: fft_rows.fft_pow2(rows)), plain,
            bound(16 * rows.numel(), fft_flops(STATION, N_STATIONS)), plain)
-    del rows, got
+    # The planar wrapper: the same DFT on (real, imag) float32 planes.
+    xr, xi = rows.real.contiguous(), rows.imag.contiguous()
+    got = torch.complex(*fft_rows.fft_pow2_planar(xr, xi))
+    err = rel_l2(got, torch.fft.fft(rows.to(torch.complex128)))
+    plain = time_ms(lambda: torch.fft.fft(torch.complex(xr, xi)))
+    report("K-FFT planar 64x2^18 fwd rel_l2", err, REL_L2_MAX,
+           time_ms(lambda: fft_rows.fft_pow2_planar(xr, xi)), plain,
+           bound(16 * rows.numel(), fft_flops(STATION, N_STATIONS)), plain)
+    del rows, got, xr, xi
 
     band = crandn_(N_BAND)
     band64 = band.to(torch.complex128)
@@ -1859,6 +1879,230 @@ def check_synth(device) -> None:
 
 
 
+# Phase 15, [parallel]: a world of two ranks on one card over gloo (NCCL
+# refuses two ranks on one device). It proves that the sharded
+# algorithms compute the right thing with the card's kernels inside them;
+# its times are not a scaling figure.
+PAR_RANKS = 2
+PAR_CHUNKS = 3
+PAR_FIR_TAPS = 51
+HALO_FIR_TAPS = 129           # the config-4 band FIR
+PFB_CHANNELS, PFB_P = 64, 8
+IQ_REL_L2_MAX = 1e-5          # the distributed front end against complex128
+EXTRACT_REL_MAX = 3e-4        # of max |ref|, tests/test_parallel.py:216
+SHARDED_FIR_MAX = 1e-6        # sharded K-FIR against K-FIR (0 expected)
+PFB_ABS_MAX = 2e-6            # tests/test_halo_streaming.py:76
+
+
+def _par_wall(fn):
+    """``fn()``'s result and its wall time in ms, the card synchronized."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _par_bytes(mesh, steps: int = 1) -> str:
+    """The mesh's collective bytes and host seconds per step, by kind."""
+    from radiocore_tpu_torch.parallel.comm_analysis import collective_bytes
+    got = collective_bytes(mesh.counter)
+    secs = mesh.counter.seconds
+    return ", ".join(
+        f"{k} {v // steps} B" + (f" in {secs[k] / steps * 1e3:.1f} ms"
+                                 if k in secs else "")
+        for k, v in got.items())
+
+
+def parallel_rank(rank: int, label: str) -> None:
+    """One rank of ``[parallel]``: the mesh step in ``fast`` and ``exact``
+    at the main plan (distributed front end), the mesh step on the
+    all-gather branch, the config-4 form (halo overlap-save FIR and the
+    distributed extraction), the sharded K-FIR and the streaming sharded
+    PFB, each against the unsharded path on the card; raises on any
+    failure, which fails the world."""
+    import torch
+    from scipy import signal as sig
+    from radiocore_tpu_torch.kernels import extract, fft_rows, fir
+    from radiocore_tpu_torch.ops.channelize import (make_extractor,
+                                                    uniform_extraction_start)
+    from radiocore_tpu_torch.ops.fft import fft
+    from radiocore_tpu_torch.ops.fir import fir_overlap_save
+    from radiocore_tpu_torch.ops.pfb import (pfb_channelize, pfb_init,
+                                             pfb_taps)
+    from radiocore_tpu_torch.parallel.channelize_sharded import (
+        make_extract_body)
+    from radiocore_tpu_torch.parallel.halo import (fir_causal_sharded,
+                                                   fir_overlap_save_halo,
+                                                   pfb_channelize_halo)
+    from radiocore_tpu_torch.parallel.mesh import (FLAT, TIME,
+                                                   make_radio_mesh, shard,
+                                                   station_sharding)
+    from radiocore_tpu_torch.parallel.pipeline import (
+        gather_stations, make_multi_station_step)
+
+    tag = f"[parallel] rank {rank}"
+    mesh = make_radio_mesh(stations=PAR_RANKS, time=1)
+    tmesh = make_radio_mesh(stations=1, time=PAR_RANKS)
+    device = mesh.device
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    c, sc, n = N_STATIONS, STATION, N_BAND
+    offs = offsets(c, sc)
+    shifts = tuple(-o for o in offs)
+    bands = [fm_band(gen, c, sc, device) for _ in range(PAR_CHUNKS)]
+    counters = {"K-FFT": fft_rows.launches, "K-EXTRACT": extract.launches,
+                "K-FIR": fir.launches}
+    mine = station_sharding(mesh, c)
+
+    def run_steps(step, state, chunks):
+        torch.cuda.synchronize()
+        for ctr in counters.values():
+            ctr.reset()
+        mesh.counter.reset()
+        audios, walls = [], []
+        for band in chunks:
+            (audio, state), ms = _par_wall(
+                lambda: step(shard(band, mesh, FLAT), state))
+            audios.append(audio)
+            walls.append(ms)
+        return audios, walls, {k: v.count for k, v in counters.items()}
+
+    def against_one_process(what, mode, offs_, chunks, audios):
+        ref_step, ref_state = make_multi_station_step(
+            n, offs_, sc, AUDIO, mode=mode, device=device)
+        worst = 0.0
+        for band, audio in zip(chunks, audios):
+            want, ref_state = ref_step(band, ref_state)
+            worst = max(worst, max_abs(gather_stations(audio, mesh), want))
+        print(f"{tag} {what}: gathered audio against the one-process step "
+              f"on the card max_abs {worst:.3e} (bound {E2E_ABS_MAX:.0e})",
+              flush=True)
+        if not worst <= E2E_ABS_MAX:
+            raise AssertionError(f"{what}: audio off by {worst}")
+
+    for mode in ("fast", "exact"):
+        step, state = make_multi_station_step(n, offs, sc, AUDIO, mode=mode,
+                                              mesh=mesh)
+        if not step.distributed:
+            raise AssertionError("the main plan missed the distributed "
+                                 "front end")
+        audios, walls, launches = run_steps(step, state, bands)
+        print(f"{tag} {mode} {c} x {sc} -> {AUDIO}, stations "
+              f"{mine.start}..{mine.stop - 1}, {PAR_CHUNKS} chunks: "
+              f"launches {launches}; collectives a step: "
+              f"{_par_bytes(mesh, PAR_CHUNKS)}; step wall "
+              + ", ".join(f"{ms:.1f}" for ms in walls)
+              + f" ms ({label})", flush=True)
+        # fast: the station rfft (K-FFT) and de-emphasis (K-FIR); exact:
+        # three K-FIR launches a step. The band's local transforms (4096
+        # and 2^18 points) are below ops/fft.KERNEL_MIN: cuFFT.
+        fir_per_step = 3 if mode == "exact" else 1
+        if ((mode == "fast" and launches["K-FFT"] <= 0)
+                or launches["K-FIR"] != fir_per_step * PAR_CHUNKS):
+            raise AssertionError(f"{mode}: launches {launches}")
+        against_one_process(mode, mode, offs, bands, audios)
+        if mode == "fast":
+            iq = step.stages["front_end"](shard(bands[0], mesh, FLAT))
+            a0 = uniform_extraction_start(n, shifts, sc)
+            ref = extract.extract_rows_plain(
+                torch.fft.fft(bands[0].to(torch.complex128)), a0, c, sc,
+                1.0 / n)[mine]
+            err = rel_l2(iq, ref)
+            print(f"{tag} distributed front end: station IQ rel_l2 "
+                  f"{err:.3e} of complex128 (bound {IQ_REL_L2_MAX:.0e})",
+                  flush=True)
+            if not err <= IQ_REL_L2_MAX:
+                raise AssertionError(f"front end: rel_l2 {err}")
+        del step, state, audios
+
+    # The all-gather branch: the 62 inner stations of the band (a uniform
+    # plan that does not tile it) gather the band, and each rank's 31
+    # stations go through K-EXTRACT.
+    offs62 = offs[1:-1]
+    step, state = make_multi_station_step(n, offs62, sc, AUDIO, mode="fast",
+                                          mesh=mesh)
+    if step.distributed:
+        raise AssertionError("62 stations took the distributed front end")
+    audios, walls, launches = run_steps(step, state, bands[:1])
+    print(f"{tag} all-gather branch, fast, {len(offs62)} x {sc} in a 2^24 "
+          f"band: launches {launches}; collectives a step: "
+          f"{_par_bytes(mesh)}; step wall {walls[0]:.1f} ms ({label})",
+          flush=True)
+    if launches["K-EXTRACT"] <= 0:
+        raise AssertionError(f"all-gather branch: launches {launches}")
+    against_one_process("all-gather branch", "fast", offs62, bands[:1],
+                        audios)
+    del step, state, audios
+
+    # The config-4 form over a time axis of 2.
+    axis = tmesh.axis(TIME)
+    taps = sig.firwin(HALO_FIR_TAPS, 0.45)
+    body = make_extract_body(n, shifts, sc, PAR_RANKS, axis)
+    band = bands[0]
+    tmesh.counter.reset()
+    got, ms = _par_wall(lambda: body(fir_overlap_save_halo(
+        shard(band, tmesh), taps, axis)[0]))
+    want = make_extractor(n, shifts, sc)(fft(fir_overlap_save(band, taps)))
+    want = want[rank * c // PAR_RANKS:(rank + 1) * c // PAR_RANKS]
+    err = max_abs(got, want) / float(want.abs().max())
+    print(f"{tag} config 4 ({HALO_FIR_TAPS}-tap halo overlap-save FIR, "
+          f"distributed extraction of {c} channels of a 2^24 band): "
+          f"max_abs/max|ref| {err:.3e} (bound {EXTRACT_REL_MAX:.0e}); "
+          f"collectives: {_par_bytes(tmesh)}; wall {ms:.1f} ms ({label})",
+          flush=True)
+    if not err <= EXTRACT_REL_MAX:
+        raise AssertionError(f"config 4: {err}")
+    del got, want
+
+    # fir_causal_sharded at 51 taps over 2^24 float32: K-FIR on each
+    # rank's block with its halo, against K-FIR on the whole signal.
+    taps51 = sig.firwin(PAR_FIR_TAPS, 0.25)
+    x = torch.randn(n, generator=gen, device=device)
+    fir.launches.reset()
+    tmesh.counter.reset()
+    got, ms = _par_wall(lambda: fir_causal_sharded(shard(x, tmesh), taps51,
+                                                   tmesh))
+    kfir = fir.launches.count
+    want = shard(fir.fir_causal_rows(x, taps51), tmesh)
+    err = max_abs(got, want)
+    print(f"{tag} fir_causal_sharded {PAR_FIR_TAPS} taps over 2^24 f32: "
+          f"max_abs {err:.3e} against unsharded K-FIR (bound "
+          f"{SHARDED_FIR_MAX:.0e}); K-FIR launches {kfir}; collectives: "
+          f"{_par_bytes(tmesh)}; wall {ms:.1f} ms ({label})", flush=True)
+    if kfir != 1 or not err <= SHARDED_FIR_MAX:
+        raise AssertionError(f"fir_causal_sharded: {kfir} launches, {err}")
+    del x, got, want
+
+    # pfb_channelize_halo, 64 channels, P = 8, two chained chunks of 2^24.
+    taps = pfb_taps(PFB_CHANNELS, PFB_P)
+    hist = pfb_init(PFB_CHANNELS, PFB_P, device=device)
+    ref_hist = pfb_init(PFB_CHANNELS, PFB_P, device=device)
+    frames = n // PAR_RANKS // PFB_CHANNELS
+    worst, walls = 0.0, []
+    tmesh.counter.reset()
+    for _ in range(2):
+        chunk = crandn(gen, device, n)
+        (ch, hist), ms = _par_wall(lambda: pfb_channelize_halo(
+            shard(chunk, tmesh), taps, PFB_CHANNELS, axis,
+            stream_history=hist))
+        ref, ref_hist = pfb_channelize(chunk, taps, PFB_CHANNELS,
+                                       history=ref_hist)
+        walls.append(ms)
+        worst = max(worst, max_abs(
+            ch, ref[rank * frames:(rank + 1) * frames]))
+    hist_err = max_abs(hist, ref_hist)
+    print(f"{tag} pfb_channelize_halo {PFB_CHANNELS} channels, P = "
+          f"{PFB_P}, 2 chunks of 2^24: max_abs {worst:.3e} against "
+          f"unsharded (bound {PFB_ABS_MAX:.0e}), history {hist_err:.3e}; "
+          f"collectives a chunk: {_par_bytes(tmesh, 2)}; wall "
+          + ", ".join(f"{ms:.1f}" for ms in walls) + f" ms ({label})",
+          flush=True)
+    if not (worst <= PFB_ABS_MAX and hist_err <= 1e-7):
+        raise AssertionError(f"pfb_channelize_halo: {worst}, {hist_err}")
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1998,6 +2242,15 @@ def main() -> int:
         check_dead_step(device, gen)
         lap("dead stations through whole steps")
 
+    def phase_parallel():
+        # Phase 15: two ranks on this card over gloo.
+        from radiocore_tpu_torch.parallel.dryrun import run_world
+        torch.cuda.empty_cache()
+        run_world(parallel_rank, PAR_RANKS,
+                  f"{smi.splitlines()[0]}, {PAR_RANKS} ranks on one card "
+                  f"over gloo", backend="gloo")
+        lap("[parallel]")
+
     def phase_apps():
         # Phase 14: the apps' path and the host edge under it.
         chunk = check_ingest(device, gen)[0]
@@ -2014,7 +2267,8 @@ def main() -> int:
 
     for run_phase in (phase_main, phase_band, phase_dead, phase_paths96,
                       phase_nco, phase_firpilot, phase_exact, phase_ncopath,
-                      phase_classes, phase_deadstep, phase_apps):
+                      phase_classes, phase_deadstep, phase_apps,
+                      phase_parallel):
         run_phase()
 
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")

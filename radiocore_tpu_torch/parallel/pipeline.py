@@ -1,8 +1,8 @@
-"""Fused multi-station pipeline on one device; counterpart of
-``radiocore_tpu/parallel/pipeline.py`` (``make_multi_station_step`` on a
-single device: ``mode='exact'``, and ``mode='fast'`` with the hoisted
+"""Fused multi-station pipeline; counterpart of
+``radiocore_tpu/parallel/pipeline.py`` (``make_multi_station_step``: on
+one device, ``mode='exact'``, and ``mode='fast'`` with the hoisted
 station rfft and the fused extract+demod paths of
-``RADIOCORE_TPU_EXTRACT_DEMOD``).
+``RADIOCORE_TPU_EXTRACT_DEMOD``; over a rank mesh with ``mesh=``).
 
     band IQ (n_band,) ──K-FFT or K-MIXED──► spectrum
     exact:   ──K-EXTRACT──► (C, m) station IQ ──exact WBFM step over the
@@ -17,6 +17,17 @@ station rfft and the fused extract+demod paths of
 
 On a CUDA device every kernel stage runs the hand-written kernel; on
 the CPU the same code runs their plain PyTorch versions.
+
+With a mesh, each rank takes its contiguous block of the band and
+returns the audio and state of its block of the stations, both dealt
+over every rank in row-major mesh order (``parallel/mesh``'s ``shard``
+and ``station_sharding``; :func:`gather_stations` joins the audio):
+
+    distributed (a uniform critical plan, ``channelize_sharded``):
+             band block ──six-step FFT, roll, extraction──► (C/D, m) IQ
+    otherwise: band block ──all-gather──► band ──FFT──► spectrum
+             ──extraction of this rank's stations──► station IQ
+    station IQ ──the demod and tail of one device──► audio block
 """
 
 from __future__ import annotations
@@ -34,6 +45,10 @@ from radiocore_tpu_torch.ops import fft as _fft
 from radiocore_tpu_torch.ops.channelize import (make_extractor,
                                                 uniform_extraction_start)
 from radiocore_tpu_torch.ops.demod import quadrature_demod
+from radiocore_tpu_torch.parallel.channelize_sharded import make_extract_body
+from radiocore_tpu_torch.parallel.collectives import all_gather
+from radiocore_tpu_torch.parallel.mesh import (FLAT, RadioMesh,
+                                               station_sharding)
 from radiocore_tpu_torch.runtime.platform import resolve_device
 
 State = Dict[str, torch.Tensor]
@@ -49,6 +64,7 @@ def make_multi_station_step(
         extract_demod: str = "off",
         *,
         device: Optional[torch.device | str] = None,
+        mesh: Optional[RadioMesh] = None,
 ) -> Tuple[Callable[[torch.Tensor, State], Tuple[torch.Tensor, State]],
            State]:
     """Build ``step(band_iq, state) -> (audio, state)`` plus the initial
@@ -77,6 +93,19 @@ def make_multi_station_step(
     ``step.stages`` holds the three stages that ``step`` chains, for
     per-stage timing: ``band_fft``, ``extract`` and ``demod_tail`` for
     ``"off"``; ``band_fft``, ``extract_demod`` and ``tail`` otherwise.
+
+    With ``mesh`` (a :class:`~radiocore_tpu_torch.parallel.mesh.RadioMesh`;
+    ``extract_demod="off"``, as the reference's mesh path takes no fused
+    route) each rank builds and runs its own step on ``mesh.device``:
+    ``step(band_block, state)`` takes this rank's contiguous block of the
+    band (``parallel.mesh.shard(band, mesh, FLAT)``) and returns the audio
+    and state of its block of the stations
+    (``parallel.mesh.station_sharding``). When
+    ``channelize_sharded.make_extract_body`` takes the plan, the front
+    end is distributed (no rank holds the band or its spectrum);
+    otherwise the band is gathered and each rank extracts its own
+    stations. Either way each rank demodulates its stations as one
+    device does. ``step.stages`` is ``front_end`` and ``demod_tail``.
     """
     if mode not in ("exact", "fast"):
         raise ValueError(f"unknown mode {mode!r}; 'exact' or 'fast'")
@@ -87,6 +116,14 @@ def make_multi_station_step(
         raise ValueError(f"extract_demod={extract_demod!r} needs "
                          f"mode='fast': the exact step works on the "
                          f"station IQ")
+    if mesh is not None:
+        if extract_demod != "off":
+            raise ValueError(f"extract_demod={extract_demod!r} with a mesh: "
+                             f"the mesh path takes no fused route")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device={device!r} differs from the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
     device = resolve_device(device)
     n_stations = len(offsets_hz)
     n_band = int(n_band)
@@ -116,18 +153,22 @@ def make_multi_station_step(
     def station_rfft(quad: torch.Tensor) -> torch.Tensor:
         return fft_rows.rfft_pow2(quad) if kernel_rfft else _fft.rfft(quad)
 
+    if mode == "exact":
+        demod_tail = tail   # batch-generic: the stations ride along
+    else:
+        def demod_tail(st_iq: torch.Tensor, state: State
+                       ) -> Tuple[torch.Tensor, State]:
+            return tail(station_rfft(quadrature_demod(st_iq)), state)
+
+    if mesh is not None:
+        return _mesh_step(mesh, n_band, shifts, sc, audio_chunk, deemphasis,
+                          demod_tail)
+
     if extract_demod == "off":
         extract = make_extractor(n_band, shifts, sc)
 
         def extract_stations(spectrum: torch.Tensor) -> torch.Tensor:
             return extract(spectrum).to(torch.complex64)
-
-        if mode == "exact":
-            demod_tail = tail   # batch-generic: the stations ride along
-        else:
-            def demod_tail(st_iq: torch.Tensor, state: State
-                           ) -> Tuple[torch.Tensor, State]:
-                return tail(station_rfft(quadrature_demod(st_iq)), state)
 
         stages = {"band_fft": band_fft, "extract": extract_stations,
                   "demod_tail": demod_tail}
@@ -163,3 +204,51 @@ def make_multi_station_step(
     state0 = wbfm_init_state(audio_chunk, deemphasis,
                              batch_shape=(n_stations,), device=device)
     return step, state0
+
+
+def _mesh_step(mesh: RadioMesh, n_band: int, shifts: Tuple[int, ...],
+               sc: int, audio_chunk: int, deemphasis: float,
+               demod_tail: Callable[[torch.Tensor, State],
+                                    Tuple[torch.Tensor, State]]):
+    """This rank's step over the flat (row-major) axis of ``mesh``."""
+    axis = mesh.axis(FLAT)
+    d = axis.size
+    if n_band % d:
+        raise ValueError(f"n_band={n_band} does not split over {d} ranks")
+    if len(shifts) < d:
+        raise ValueError(f"{len(shifts)} stations for {d} ranks: every "
+                         f"rank needs one")
+    mine = station_sharding(mesh, len(shifts))
+    body = make_extract_body(n_band, shifts, sc, d, axis)
+    if body is not None:
+        def front_end(block: torch.Tensor) -> torch.Tensor:
+            return body(block).to(torch.complex64)
+    else:
+        extract = make_extractor(n_band, shifts[mine], sc)
+
+        def front_end(block: torch.Tensor) -> torch.Tensor:
+            band = all_gather(block, axis).reshape(-1)
+            return extract(_fft.fft(band)).to(torch.complex64)
+
+    def step(band_block: torch.Tensor, state: State
+             ) -> Tuple[torch.Tensor, State]:
+        return demod_tail(front_end(band_block), state)
+
+    step.stages = {"front_end": front_end, "demod_tail": demod_tail}
+    step.distributed = body is not None
+    state0 = wbfm_init_state(audio_chunk, deemphasis,
+                             batch_shape=(mine.stop - mine.start,),
+                             device=mesh.device)
+    return step, state0
+
+
+def gather_stations(x: torch.Tensor, mesh: RadioMesh) -> torch.Tensor:
+    """Every rank's block of a station axis (the leading one, as the
+    audio of a mesh step), joined in station order, on every rank."""
+    axis = mesh.axis(FLAT)
+    sizes = all_gather(torch.tensor([x.shape[0]], device=x.device),
+                       axis).reshape(-1).tolist()
+    padded = x.new_zeros((max(sizes),) + tuple(x.shape[1:]))
+    padded[:x.shape[0]] = x
+    parts = all_gather(padded, axis)
+    return torch.cat([parts[i, :k] for i, k in enumerate(sizes)])

@@ -48,7 +48,17 @@ def test_every_module_imports_without_jax():
             "radiocore_tpu_torch.apps.iq",
             "radiocore_tpu_torch.apps.receive_fm",
             "radiocore_tpu_torch.apps.multi_fm_server",
-            "radiocore_tpu_torch.apps.multi_fm_receiver"} <= set(mods)
+            "radiocore_tpu_torch.apps.multi_fm_receiver",
+            "radiocore_tpu_torch.ops.pfb",
+            "radiocore_tpu_torch.parallel",
+            "radiocore_tpu_torch.parallel.mesh",
+            "radiocore_tpu_torch.parallel.collectives",
+            "radiocore_tpu_torch.parallel.halo",
+            "radiocore_tpu_torch.parallel.fft_sharded",
+            "radiocore_tpu_torch.parallel.channelize_sharded",
+            "radiocore_tpu_torch.parallel.comm_analysis",
+            "radiocore_tpu_torch.parallel.dryrun",
+            "radiocore_tpu_torch.runtime.platform"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
