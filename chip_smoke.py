@@ -44,11 +44,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    CPU). The main and ``spec`` steps are also traced with
    ``torch.profiler`` (device time per kernel, busy and idle share);
 8. runs K-NCO (the feedback pilot loop) against its plain PyTorch loop at
-   8 x 4096 and on rows off a 16-byte boundary, and at 64 x 262 144, on
-   rms-normalised 19 kHz pilots with a frequency offset and noise,
-   against a float64 model of the loop for a few rows, modulo 2 pi; times
-   it (CUDA events and ``torch.profiler``) beside its bytes bound and
-   prints the cycles it takes per sample;
+   8 x 4096 and on rows off a 16-byte boundary (each with a NaN row and a
+   row started 8 turns away), and at 64 x 262 144, on rms-normalised
+   19 kHz pilots with a frequency offset and noise, against a float64
+   model of the loop for a few rows, beside the float32 scan's own
+   distance, modulo 2 pi; prints the opcodes of its chain and guard from
+   ``cuobjdump -sass``; times it (CUDA events and ``torch.profiler``)
+   beside its bytes bound and its latency bound (the bare chain timed by
+   the probe ``rc_nco_chain_probe``) and prints the cycles it takes per
+   sample;
 9. runs K-FIR at the pilot bandpass's shape (41 taps, 64 x 262 390, the
    odd extension included) against float64, and ``zero_phase_fir`` on the
    card against the port on the CPU;
@@ -142,12 +146,17 @@ XSPEC_REL_MAX = 3e-5    # K-XDEMOD-SPEC, max abs / max |ref|
 ATAN_ABS_MAX = 2e-6   # the discriminator against float64 atan2, rad
 E2E_ABS_MAX = 1e-4    # card against CPU, audio of chunk 1
 SNR_MIN_DB = 20.0     # per stereo tone, as the repository's verify drive
-# K-NCO. Against its plain loop the kernel rounds alike (0 expected); the
-# bound leaves room for a cosf that differs in its last bit. Against the
-# float64 model the loop's own feedback holds float32 rounding down.
-NCO_PLAIN_MAX = 1e-5  # rad, modulo 2 pi
+# K-NCO. Against its plain loop (the scan's order): the kernel puts the
+# frequency update into the phase update, fuses multiply-adds and takes
+# the hardware cosine, and two float32 loops that round differently drift
+# apart by about 1.4e-5 rad before the loop's feedback pulls them back.
+# Against the float64 model the loop's feedback holds float32 rounding
+# down (the float32 scan itself is printed beside the kernel).
+NCO_PLAIN_MAX = 5e-5  # rad, modulo 2 pi
 NCO_F64_MAX = 2e-4    # rad, modulo 2 pi
 NCO_SHORT = (8, 4096)
+NCO_DEAD = 3          # a NaN pilot row in the short check
+NCO_WILD = 5          # a row started 8 turns away (about -+50 rad)
 FAST_EXACT_MIN_DB = 40.0   # fast against exact audio on a real station
 
 # Published peaks of one H100 SXM: the yardstick of each kernel's bound.
@@ -1107,22 +1116,58 @@ def pilots(gen, rows: int, n: int, device):
     return x.float()
 
 
-def nco_model_f64(pilot, gains, phase, freq):
-    """The loop in float64 NumPy, rows as the vector: ``(traj, phase,
-    freq)``."""
+def nco_model(pilot, gains, phase, freq, dtype):
+    """The loop in the scan's order in NumPy, rows as the vector, every
+    operation in ``dtype`` (float64: the reference; float32: the scan as
+    the JAX package runs it): ``(traj, phase, freq)``."""
     import numpy as np
-    kp, ki, w0 = gains
-    x = np.asarray(pilot, np.float64)
-    phase = np.array(phase, np.float64)
-    freq = np.array(freq, np.float64)
+    kp, ki, w0 = (dtype(g) for g in gains)
+    pi, two_pi = dtype(np.pi), dtype(2 * np.pi)
+    x = np.asarray(pilot, dtype)
+    phase = np.array(phase, dtype)
+    freq = np.array(freq, dtype)
     traj = np.empty_like(x)
     for t in range(x.shape[-1]):
         err = x[:, t] * np.cos(phase)
         traj[:, t] = phase
         freq = freq + ki * err
         phase = phase + w0 + freq + kp * err
-        phase = np.where(phase > np.pi, phase - 2 * np.pi, phase)
+        phase = np.where(phase > pi, phase - two_pi, phase)
     return traj, phase, freq
+
+
+def nco_sass_summary(lib_path) -> str:
+    """The opcodes of K-NCO's instantiations in the built library that
+    show its chain and its guard (``cuobjdump -sass``): the hardware
+    cosines, the fused multiply-adds, the branches and calls (cosf's
+    guard is a branch if they come one a sample) and the selects."""
+    import re
+    tool = Path(build_tool("cuobjdump"))
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    parts = re.split(r"\n\s*Function : ", out)
+    lines = []
+    for part in parts[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "nco_pll_kernel" not in name:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)", part)
+        count = {k: sum(1 for o in ops if o.startswith(k))
+                 for k in ("MUFU.COS", "FFMA", "FSEL", "BRA", "CALL")}
+        vec = "true" if "ILb1E" in name else "false"
+        lines.append(f"nco_pll_kernel<{vec}>: {len(ops)} instructions, "
+                     + ", ".join(f"{k} {v}" for k, v in count.items()))
+    if not lines:
+        raise AssertionError("cuobjdump shows no nco_pll_kernel")
+    return "; ".join(lines)
+
+
+def build_tool(name: str) -> str:
+    """A tool of the CUDA toolkit that holds nvcc."""
+    from radiocore_tpu_torch.kernels import build
+    return str(Path(build.find_nvcc()).parent / name)
 
 
 def sm_clock_mhz():
@@ -1136,40 +1181,59 @@ def sm_clock_mhz():
 
 def check_nco(device, gen) -> dict:
     """Phase 8: K-NCO against its plain loop at a short length (aligned
-    rows and rows off a 16-byte boundary) and, at the nco path's shape,
-    against a float64 model of the loop; its time beside its bound."""
+    rows and rows off a 16-byte boundary, each with a NaN row and a row
+    started 8 turns away) and, at the nco path's shape, against a float64
+    model of the loop beside the float32 scan's own distance; its time
+    beside its bytes bound and its latency bound (the bare chain timed by
+    the probe)."""
     import numpy as np
     import torch
-    from radiocore_tpu_torch.kernels import nco_pll as knco
+    from radiocore_tpu_torch.kernels import build, nco_pll as knco
     from radiocore_tpu_torch.ops.nco_pll import pll_design
 
+    print(f"[kernel] K-NCO SASS: {nco_sass_summary(build.build().path)}")
     gains = pll_design(STATION, 19e3, 50.0)
     rows, n = NCO_SHORT
     wide = pilots(gen, rows, n + 8, device)
+    wide[NCO_DEAD] = float("nan")
+    live = [r for r in range(rows) if r != NCO_DEAD]
     short = {}
-    for what, x in ((f"{rows}x{n}", wide[:, :n].contiguous()),
-                    (f"{rows}x{n + 1} rows off a 16-byte boundary",
-                     wide[:, 1:n + 2])):
+    for what, x, turns in ((f"{rows}x{n}", wide[:, :n].contiguous(), -8),
+                           (f"{rows}x{n + 1} rows off a 16-byte boundary",
+                            wide[:, 1:n + 2], 8)):
         phase0 = 2.0 * torch.rand(rows, generator=gen, device=device) - 1.0
+        phase0[NCO_WILD] += turns * 2 * math.pi
         freq0 = 1e-5 * torch.randn(rows, generator=gen, device=device)
         got = knco.nco_pll_track_rows(x, *gains, phase0, freq0)
         ref = knco.nco_pll_track_plain(x, *gains, phase0, freq0)
-        errs = (float(wrapped(got[0], ref[0]).abs().max()),
-                float(wrapped(got[1], ref[1]).abs().max()),
-                max_abs(got[2], ref[2]))
+        errs = (float(wrapped(got[0][live], ref[0][live]).abs().max()),
+                float(wrapped(got[1][live], ref[1][live]).abs().max()),
+                max_abs(got[2][live], ref[2][live]))
+        dead = [bool(v[NCO_DEAD, 1:].isnan().all()) and
+                bool(v[NCO_DEAD, 0] == phase0[NCO_DEAD]) and
+                bool(p[NCO_DEAD].isnan()) and bool(f[NCO_DEAD].isnan())
+                for v, p, f in (got, ref)]
+        wild = float(wrapped(got[0][NCO_WILD], ref[0][NCO_WILD]).abs().max())
         ms = time_ms(lambda: knco.nco_pll_track_rows(x, *gains, phase0,
-                                                     freq0), reps=5, warmup=1)
+                                                     freq0), reps=20, warmup=5)
         print(f"[kernel] K-NCO {what} against the plain loop: trajectory "
               f"{errs[0]:.3e} rad, final phase {errs[1]:.3e} rad (bound "
-              f"{NCO_PLAIN_MAX:.0e}, modulo 2 pi), final freq {errs[2]:.3e}; "
-              f"kernel {ms:.3f} ms")
-        if not (max(errs[:2]) <= NCO_PLAIN_MAX and errs[2] <= 1e-7):
+              f"{NCO_PLAIN_MAX:.0e}, modulo 2 pi), final freq {errs[2]:.3e} "
+              f"(bound 1e-7); row {NCO_WILD} started at "
+              f"{float(phase0[NCO_WILD]):+.2f} rad: {wild:.3e} rad; NaN row "
+              f"{NCO_DEAD} NaN in kernel and loop: {dead}; kernel "
+              f"{ms:.3f} ms")
+        if not (max(errs[:2]) <= NCO_PLAIN_MAX and errs[2] <= 1e-7
+                and all(dead)):
             raise AssertionError(f"K-NCO {what} differs from its plain "
-                                 f"loop: {errs}")
-        if not short:
-            short = dict(err=errs[0], ms=ms, plain_ms=time_ms(
+                                 f"loop: {errs}, NaN row {dead}")
+        short.setdefault("err", errs[0])
+        short.setdefault("ms", ms)
+        short["ms_off"] = ms
+        if "plain_ms" not in short:
+            short["plain_ms"] = time_ms(
                 lambda: knco.nco_pll_track_plain(x, *gains, phase0, freq0),
-                reps=2, warmup=0))
+                reps=2, warmup=0)
     del wide
 
     # The nco path's shape: 64 stations, one second.
@@ -1179,15 +1243,25 @@ def check_nco(device, gen) -> dict:
     traj, phase, freq = knco.nco_pll_track_rows(x, *gains, zeros, zeros)
     torch.cuda.synchronize()
     held = [0, rows // 2, rows - 1]
+    x_held = x[held].cpu().numpy()
     t0 = time.perf_counter()
-    ref = nco_model_f64(x[held].cpu().numpy(), gains, np.zeros(len(held)),
-                        np.zeros(len(held)))
+    ref = nco_model(x_held, gains, np.zeros(len(held)), np.zeros(len(held)),
+                    np.float64)
+    scan = nco_model(x_held, gains, np.zeros(len(held)), np.zeros(len(held)),
+                     np.float32)
     model_s = time.perf_counter() - t0
-    err = float(wrapped(traj[held].cpu(), torch.from_numpy(ref[0])).abs().max())
-    err_p = float(wrapped(phase[held].cpu(),
-                          torch.from_numpy(ref[1])).abs().max())
-    err_f = float((freq[held].cpu().double()
-                   - torch.from_numpy(ref[2])).abs().max())
+
+    def dist(run):
+        return (float(wrapped(torch.as_tensor(run[0]),
+                              torch.from_numpy(ref[0])).abs().max()),
+                float(wrapped(torch.as_tensor(run[1]),
+                              torch.from_numpy(ref[1])).abs().max()),
+                float((torch.as_tensor(run[2]).double()
+                       - torch.from_numpy(ref[2])).abs().max()))
+
+    err, err_p, err_f = dist((traj[held].cpu(), phase[held].cpu(),
+                              freq[held].cpu()))
+    scan_err = dist(scan)
     # Locked: the integrator holds each row's frequency offset.
     hz = freq.double() * STATION / (2 * math.pi)
     ms = time_ms(lambda: knco.nco_pll_track_rows(x, *gains, zeros, zeros),
@@ -1201,24 +1275,49 @@ def check_nco(device, gen) -> dict:
         lambda: knco.nco_pll_track_rows(x, *gains, zeros, zeros), reps=3)
         if "nco_pll_kernel" in k]
     least = bound(4 * (2 * x.numel() + 4 * rows), 30.0 * x.numel())
+    # The latency bound: each chain over a row of n links, one lane and a
+    # whole warp, timed by CUDA events and counted in SM cycles.
+    probe = {}
+    for chain in knco.PROBE_CHAINS:
+        for lanes in (1, 32):
+            def run_probe(chain=chain, lanes=lanes):
+                return knco.nco_chain_probe(n, chain, lanes, *gains)
+            probe_ms = time_ms(run_probe, reps=3, warmup=1)
+            _, cycles = run_probe()
+            links = n - n % knco.TILE if chain == "sample" else n
+            probe[chain, lanes] = (probe_ms,
+                                   float(cycles.double().max()) / links)
+    latency_ms = min(probe["bare", lanes][0] for lanes in (1, 32))
     # As many samples over 32 times the rows: whether the time follows
     # the row length alone.
     many = x.reshape(32 * rows, n // 32)
     zeros_many = torch.zeros(32 * rows, device=device)
     many_ms = time_ms(lambda: knco.nco_pll_track_rows(
         many, *gains, zeros_many, zeros_many), reps=5, warmup=1)
+    off = x[:, 1:]     # every row off a 16-byte boundary
+    off_ms = time_ms(lambda: knco.nco_pll_track_rows(off, *gains, zeros,
+                                                     zeros), reps=5, warmup=1)
     print(f"[kernel] K-NCO {rows}x{n} against the float64 model (rows "
           f"{held}, {model_s:.1f} s on the host): trajectory {err:.3e} rad, "
           f"final phase {err_p:.3e} rad (bound {NCO_F64_MAX:.0e}, modulo "
-          f"2 pi), final freq {err_f:.3e}; tracked offsets "
-          f"{float(hz.min()):+.2f} .. {float(hz.max()):+.2f} Hz")
+          f"2 pi), final freq {err_f:.3e} (bound 1e-6); the float32 scan "
+          f"(NumPy) on the same rows: trajectory {scan_err[0]:.3e} rad, "
+          f"final phase {scan_err[1]:.3e} rad, final freq "
+          f"{scan_err[2]:.3e}; tracked offsets {float(hz.min()):+.2f} .. "
+          f"{float(hz.max()):+.2f} Hz")
+    print(f"[kernel] K-NCO chain probe over {n} links: " + "; ".join(
+        f"{chain} x{lanes} lanes {pms:.3f} ms, {cyc:.1f} cycles a link"
+        for (chain, lanes), (pms, cyc) in probe.items()))
     print(f"[kernel] K-NCO {rows}x{n}: kernel {ms:.3f} ms between CUDA "
-          f"events, {device_ms:.3f} ms device time, least "
+          f"events, {device_ms:.3f} ms device time; "
+          f"{ms * 1e-3 * mhz * 1e6 / n:.1f} cycles a sample at {mhz:.0f} MHz "
+          f"(nvidia-smi clocks.sm during the run); least {latency_ms:.3f} ms "
+          f"by latency (the bare chain over a row: {latency_ms / ms:.1%}), "
           f"{least['bound_ms']:.3f} ms by {least['bound_by']} "
-          f"({least['bound_ms'] / ms:.1%}); {ms * 1e-3 * mhz * 1e6 / n:.1f} "
-          f"cycles a sample at {mhz:.0f} MHz (nvidia-smi clocks.sm during "
-          f"the run); at {NCO_SHORT[0]}x{NCO_SHORT[1]}: kernel "
-          f"{short['ms']:.3f} ms, plain loop {short['plain_ms']:.1f} ms; "
+          f"({least['bound_ms'] / ms:.1%}); {rows}x{n - 1} off a 16-byte "
+          f"boundary {off_ms:.3f} ms; at {NCO_SHORT[0]}x{NCO_SHORT[1]}: "
+          f"kernel {short['ms']:.3f} ms, off a 16-byte boundary "
+          f"{short['ms_off']:.3f} ms, plain loop {short['plain_ms']:.1f} ms; "
           f"the same samples as {32 * rows}x{n // 32}: {many_ms:.3f} ms; no "
           f"library call")
     if not (max(err, err_p) <= NCO_F64_MAX and err_f <= 1e-6):

@@ -7,13 +7,24 @@ samples that carries ``(phase, freq)``,
     err = x[t]·cos(phase);  traj[t] = phase;  freq += ki·err
     phase = ((phase + w0) + freq) + kp·err;  phase −= 2π where phase > π
 
-all in float32. The kernel (``csrc/nco_pll.cu``) gives a row to a thread
-and walks it in tiles of :data:`TILE` samples; :func:`nco_pll_track_plain`
-is the same loop in PyTorch with the rows as the vector, one Python
-iteration per sample.
+:func:`nco_pll_track_plain` is that loop in PyTorch, in the scan's order
+and float32, with the rows as the vector, one Python iteration per
+sample. The kernel (``csrc/nco_pll.cu``) gives a row to a thread, walks
+it in tiles of :data:`TILE` samples and computes the same function with
+the frequency update substituted into the phase update, so that one
+sample's dependent chain is the hardware cosine and one fused
+multiply-add (``p`` the phase before its wrap)::
+
+    s = (wrap(p) + w0) + f;  c = cos(p)
+    p' = fma((ki + kp)·x, c, s);  f' = fma(ki·x, c, f);  traj[t] = wrap(p)
+
+It rounds differently from the scan: the two drift apart by about 1e-5
+rad before the loop pulls them back, and the kernel's cosine (``__cosf``;
+``cosf`` beyond 2π) is within 2^-21.41 of the exact one on [−π, π].
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-plain loop.
+plain loop. :func:`nco_chain_probe` times the bare chain on the card, the
+kernel's least time a sample; no path calls it.
 """
 
 from __future__ import annotations
@@ -25,9 +36,16 @@ import torch
 
 from radiocore_tpu_torch.kernels.fft_rows import LaunchCounter
 
-# Samples a thread takes at once, four 16-byte accesses (csrc/nco_pll.cu
-# kNcoTile); the ragged end goes sample by sample.
-TILE = 16
+# Samples a thread takes at once (csrc/nco_pll.cu kNcoTile), by 16-byte
+# accesses on a 16-byte boundary, else by scalar ones; the ragged end goes
+# sample by sample.
+TILE = 48
+
+# The chains rc_nco_chain_probe times (csrc/nco_pll.cu
+# nco_chain_probe_kernel): the bare chain, FMUL -> MUFU.COS -> FFMA; the
+# same with the wrap before the cosine; the kernel's whole sample without
+# its loads and stores.
+PROBE_CHAINS = ("bare", "wrap", "sample")
 
 launches = LaunchCounter()
 
@@ -107,3 +125,37 @@ def nco_pll_track_rows(pilot: torch.Tensor, kp: float, ki: float, w0: float,
     if pilot.device.type != "cpu":
         raise ValueError(f"nco_pll_track_rows: no kernel for {pilot.device}")
     return nco_pll_track_plain(pilot, kp, ki, w0, phase, freq)
+
+
+def nco_chain_probe(n: int, chain: str, lanes: int, kp: float, ki: float,
+                    w0: float, device: torch.device | str = "cuda"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the latency probe: one block of ``lanes`` threads (1..32),
+    each running ``n`` links of the chain named by ``chain`` (one of
+    :data:`PROBE_CHAINS`) on a pilot sample of 1 and the gains, all in
+    registers. Returns ``(result, cycles)`` on the card, one value per
+    lane: the final phase (kept so that the compiler keeps the chain) and
+    the SM cycles the loop took (``clock64``); the chain ``sample`` runs
+    ``n // TILE`` tiles of :data:`TILE` links. Does not synchronise and
+    counts no launch. A measuring aid for the card: there is no plain
+    version."""
+    from radiocore_tpu_torch.kernels import build
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"nco_chain_probe: the probe times the card; got "
+                         f"{device}")
+    if chain not in PROBE_CHAINS:
+        raise ValueError(f"nco_chain_probe: chain {chain!r} not in "
+                         f"{PROBE_CHAINS}")
+    if not (n >= 1 and 1 <= lanes <= 32):
+        raise ValueError(f"nco_chain_probe: n={n}, lanes={lanes}")
+    result = torch.empty(lanes, dtype=torch.float32, device=device)
+    cycles = torch.empty(lanes, dtype=torch.int64, device=device)
+    lib = build.library()
+    err = lib.rc_nco_chain_probe(
+        result.data_ptr(), cycles.data_ptr(), int(n),
+        PROBE_CHAINS.index(chain), int(lanes), 1.0, float(kp),
+        float(ki), float(w0), torch.cuda.current_stream(device).cuda_stream)
+    build.check(err, f"rc_nco_chain_probe(n={n}, chain={chain}, "
+                     f"lanes={lanes})")
+    return result, cycles

@@ -24,6 +24,7 @@ def test_every_module_imports_without_jax():
             "radiocore_tpu_torch.kernels.fft_mixed",
             "radiocore_tpu_torch.kernels.extract_demod",
             "radiocore_tpu_torch.kernels.nco_pll",
+            "radiocore_tpu_torch.tools.nco_sweep",
             "radiocore_tpu_torch.ops.nco_pll",
             "radiocore_tpu_torch.runtime.transfer",
             "radiocore_tpu_torch.models.fm",
