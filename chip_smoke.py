@@ -100,6 +100,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     ``fir_causal_sharded`` at 51 taps over 2^24 against K-FIR, and
     ``pfb_channelize_halo`` (64 channels, P = 8) over two chunks against
     the unsharded channelizer. A rank that fails fails the run.
+16. (run after 13) drives ``make_multi_station_step`` under explicit
+    ``Routes`` (``runtime/routes.py``, never the environment): ``fast`` at
+    64 x 262 144 with ``extract_ifft`` = ``native``, ``fourstep`` and
+    ``pallas`` (K-FFT's ``fft_pow2`` backward instead of K-EXTRACT),
+    ``station_rfft="native"``, ``env_fft="pallas"`` and ``fir_impl`` =
+    ``fft`` and ``conv``; ``exact`` with ``fft_kernel_min = 2^16`` (the
+    tail's transforms on K-FFT's ``fft_pow2``, ``ifft_pow2``,
+    ``rfft_pow2`` and ``irfft_pow2``); ``fast`` at 96 x 262 144 with
+    ``fft_mixed_min = 0``. Each over 2 chained chunks: step time (min and
+    median of 10, CUDA events) beside the card's name and power limit,
+    launches by kernel and K-FFT entry (the kernel a route replaces must
+    launch 0 times, the entry it adds more than on the default routes),
+    audio within 1e-4 of the default routes' on the same chunks; and the
+    three extraction routes on a spectrum with two dead stations (their
+    IQ and quad exactly 0: ``[routes] dead``). In the JSON line each
+    K-FFT entry's ``launches`` is the count of the first run that made
+    any (``launches_run``: the main path for ``rfft_pow2``), beside every
+    run's own count (``launches_by_run``).
 
 The build fails the run if ``ptxas`` reports register spills for the
 demod pass of K-XDEMOD(-SPEC), for K-FIR's kernel or for K-NCO's.
@@ -107,6 +125,16 @@ demod pass of K-XDEMOD(-SPEC), for K-FIR's kernel or for K-NCO's.
 Every phase raises on failure. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result. The
 last line is ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --paths TAG [TREE]`` drives only the default
+paths (``fast`` and ``exact`` at 64 x 262 144, ``extract_demod="spec"``
+at 96 x 262 144, 2 chained chunks each) of the package in ``TREE`` (a
+checkout, such as a parent commit unpacked with ``git archive``; this
+one by default): each path's step time and launches, and the SHA-256 of
+its audio, written to ``chiprun_out/paths/TAG.json``. ``python3
+chip_smoke.py --compare TAG TAG`` says whether two such runs gave the
+same audio bit for bit and the same launches (exit 1 if not). Run the
+trees in turns (parent, change, change, parent) on one card.
 """
 
 from __future__ import annotations
@@ -166,10 +194,14 @@ F32_FLOP_PER_S = 67e12
 KERNELS = {
     "K-FFT": ("radiocore_tpu_torch/csrc/fft_rows.cu",
               "radiocore_tpu/kernels/fft_pallas.py:258"),
-    # K-FFT's wrappers off the main path, held at row shapes; their
-    # launches are K-FFT's on the main path.
+    # K-FFT's row entries, held at row shapes; their launches are those
+    # of the [routes] phase, whose routes put them on the system's paths.
+    "K-FFT fft_pow2": ("radiocore_tpu_torch/csrc/fft_rows.cu",
+                       "radiocore_tpu/kernels/fft_pallas.py:350"),
     "K-FFT ifft_pow2": ("radiocore_tpu_torch/csrc/fft_rows.cu",
                         "radiocore_tpu/kernels/fft_pallas.py:359"),
+    "K-FFT rfft_pow2": ("radiocore_tpu_torch/csrc/fft_rows.cu",
+                        "radiocore_tpu/kernels/fft_pallas.py:371"),
     "K-FFT irfft_pow2": ("radiocore_tpu_torch/csrc/fft_rows.cu",
                          "radiocore_tpu/kernels/fft_pallas.py:393"),
     "K-EXTRACT": ("radiocore_tpu_torch/csrc/extract.cu",
@@ -440,11 +472,16 @@ def check_kernels(device, gen) -> dict:
     del x, hist
     rows = crandn_(N_STATIONS, STATION)
     got = fft_rows.fft_pow2(rows)
-    err = rel_l2(got, torch.fft.fft(rows.to(torch.complex128)))
+    ref = torch.fft.fft(rows.to(torch.complex128))
+    err = rel_l2(got, ref)
+    ms = time_ms(lambda: fft_rows.fft_pow2(rows))
     plain = time_ms(lambda: fft_rows.fft_pow2_plain(rows))
-    report("K-FFT rows 64x2^18 fwd rel_l2", err, REL_L2_MAX,
-           time_ms(lambda: fft_rows.fft_pow2(rows)), plain,
-           bound(16 * rows.numel(), fft_flops(STATION, N_STATIONS)), plain)
+    least = bound(16 * rows.numel(), fft_flops(STATION, N_STATIONS))
+    report("K-FFT rows 64x2^18 fwd rel_l2", err, REL_L2_MAX, ms, plain,
+           least, plain)
+    out["K-FFT fft_pow2"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
+                                 plain_ms=plain, **least, library_ms=plain)
+    del ref
     # The planar wrapper: the same DFT on (real, imag) float32 planes.
     xr, xi = rows.real.contiguous(), rows.imag.contiguous()
     got = torch.complex(*fft_rows.fft_pow2_planar(xr, xi))
@@ -475,15 +512,19 @@ def check_kernels(device, gen) -> dict:
 
     real = torch.randn(N_STATIONS, STATION, generator=gen, device=device)
     got = fft_rows.rfft_pow2(real)
-    err = rel_l2(got, torch.fft.rfft(real.double()))
+    ref = torch.fft.rfft(real.double())
+    err = rel_l2(got, ref)
+    ms = time_ms(lambda: fft_rows.rfft_pow2(real))
     plain = time_ms(lambda: fft_rows.rfft_pow2_plain(real))
-    report("K-FFT rfft 64x2^18 real rel_l2", err, REL_L2_MAX,
-           time_ms(lambda: fft_rows.rfft_pow2(real)), plain,
-           bound(4 * real.numel() + 8 * got.numel(),
-                 fft_flops(STATION // 2, N_STATIONS)), plain)
-    del got
+    least = bound(4 * real.numel() + 8 * got.numel(),
+                  fft_flops(STATION // 2, N_STATIONS))
+    report("K-FFT rfft 64x2^18 real rel_l2", err, REL_L2_MAX, ms, plain,
+           least, plain)
+    out["K-FFT rfft_pow2"] = dict(max_abs_err=max_abs(got, ref), ms=ms,
+                                  plain_ms=plain, **least, library_ms=plain)
+    del got, ref
 
-    # The wrappers off the main path, at the same row shapes.
+    # The inverse wrappers, at the same row shapes.
     rows = crandn_(N_STATIONS, STATION)
     ref = torch.fft.ifft(rows.to(torch.complex128))
     got = fft_rows.ifft_pow2(rows)
@@ -920,19 +961,27 @@ def path_counters(c: int, extract_demod: str, mode: str = "fast") -> dict:
 
 
 def run_main_path(device, gen, c=N_STATIONS, sc=STATION, ac=AUDIO,
-                  chunks=CHUNKS, extract_demod="off", mode="fast"):
-    """Drive a path over ``chunks`` chained chunks; returns the step, its
-    state, the first chunk's band and audio and the launch counts of the
-    kernels the path must go through (counted from 0 around the run)."""
+                  chunks=CHUNKS, extract_demod="off", mode="fast",
+                  routes=None, bands=None, also=None):
+    """Drive a path over chained chunks: ``bands``, or ``chunks`` seeded
+    ones. Returns the step, its state, the bands, their audio and the
+    launch counts of the kernels the path must go through and of ``also``
+    (name -> counter), every count set to 0 just before the run. On the
+    default routes (``routes`` None) each of the path's kernels must
+    launch; under ``routes`` the caller checks the counts."""
     import torch
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
 
+    # No routes= on the default routes: ``--paths`` drives checkouts from
+    # before the routes too.
+    kw = {} if routes is None else {"routes": routes}
     step, state = make_multi_station_step(c * sc, offsets(c, sc), sc, ac,
                                           mode=mode,
                                           extract_demod=extract_demod,
-                                          device=device)
-    bands = [fm_band(gen, c, sc, device) for _ in range(chunks)]
-    counters = path_counters(c, extract_demod, mode)
+                                          device=device, **kw)
+    if bands is None:
+        bands = [fm_band(gen, c, sc, device) for _ in range(chunks)]
+    counters = {**path_counters(c, extract_demod, mode), **(also or {})}
     torch.cuda.synchronize()
     for counter in counters.values():
         counter.reset()
@@ -947,12 +996,12 @@ def run_main_path(device, gen, c=N_STATIONS, sc=STATION, ac=AUDIO,
             raise AssertionError(f"audio shape {tuple(audio.shape)}")
         if not bool(torch.isfinite(audio).all()):
             raise AssertionError("non-finite audio")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in path_counters(c, extract_demod, mode):
+        if routes is None and launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the mode="
                                  f"{mode!r}, extract_demod="
                                  f"{extract_demod!r} path")
-    return step, state, bands[0], audios[0], launches
+    return step, state, bands, audios, launches
 
 
 def step_ms(step, band, state, record=None) -> str:
@@ -1375,8 +1424,9 @@ def run_exact_path(device, gen, launches) -> None:
     """Phase 10: ``make_multi_station_step(mode="exact")`` at full width."""
     from oracles import snr_db
     c = N_STATIONS
-    step, state, band1, audio1, counts = run_main_path(
+    step, state, bands, audios, counts = run_main_path(
         device, gen, chunks=CHUNKS_EXACT, mode="exact")
+    band1, audio1 = bands[0], audios[0]
     print(f"[exact] {c} x {STATION} -> {AUDIO}, {CHUNKS_EXACT} chunks: "
           f"audio {tuple(audio1.shape)} finite; launches {counts}")
     if counts["K-FIR"] != 3 * CHUNKS_EXACT:
@@ -1391,7 +1441,7 @@ def run_exact_path(device, gen, launches) -> None:
     profile_step("exact", step, band, state, steps=5)
     against_cpu("exact", c, band1, audio1, mode="exact")
     exact = check_station("exact station", step, c, device, mode="exact")
-    del step, state, band1, audio1, band
+    del step, state, bands, audios, band1, audio1, band
     fast_step, _ = _fast_step(c, device)
     fast = check_station("exact station, fast mode", fast_step, c, device)
     db = [snr_db(exact[1000:-1000, ch], fast[1000:-1000, ch])
@@ -1403,11 +1453,11 @@ def run_exact_path(device, gen, launches) -> None:
         raise AssertionError(f"fast against exact: {db} dB")
 
 
-def _fast_step(c, device, extract_demod="off"):
+def _fast_step(c, device, extract_demod="off", routes=None):
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
     return make_multi_station_step(
         c * STATION, offsets(c, STATION), STATION, AUDIO, mode="fast",
-        extract_demod=extract_demod, device=device)
+        extract_demod=extract_demod, device=device, routes=routes)
 
 
 def real_station_iq(seconds: int = 1):
@@ -1567,13 +1617,18 @@ def check_classes(device, gen) -> None:
         raise AssertionError("a route chosen by dtype or size is wrong")
 
 
-def check_dead_step(device, gen) -> None:
+def check_dead_step(device, gen, extract_ifft=()) -> None:
     """Phase 13: whole steps on a 64-station spectrum in which two
     stations' bins are exactly zero, in all three ``extract_demod``
     modes: the dead stations' audio is finite and, like the live
-    stations', equal to the port's on the CPU."""
+    stations', equal to the port's on the CPU. With ``extract_ifft``
+    (phase 16) the ``fast`` step under each of those extraction routes
+    instead: the dead stations' IQ and quad exactly 0, and every
+    station's audio within the bound of the default routes'."""
     import torch
     from radiocore_tpu_torch.ops.channelize import uniform_extraction_start
+    from radiocore_tpu_torch.ops.demod import quadrature_demod
+    from radiocore_tpu_torch.runtime.routes import Routes
 
     c, m, n = N_STATIONS, STATION, N_BAND
     dead = [c // 2, c - 1]
@@ -1583,28 +1638,138 @@ def check_dead_step(device, gen) -> None:
     for i in dead:
         bins = (a0 + i * m + torch.arange(m + 1, device=device)) % n
         spec[bins] = 0
-    spec_cpu = spec.cpu()
+
+    def tail(dev, sp, xd="off", routes=None):
+        step, state = _fast_step(c, dev, xd, routes)
+        _, middle, last = step.stages.values()
+        iq = middle(sp)
+        return iq, last(iq, state)[0]
+
     failures = []
-    for xd in ("off", "fused", "spec"):
-        audio = {}
-        for dev, sp in ((device, spec), ("cpu", spec_cpu)):
-            step, state = _fast_step(c, dev, xd)
-            _, middle, last = step.stages.values()
-            audio[str(dev)], _ = last(middle(sp), state)
-        card, cpu = audio[str(device)].cpu(), audio["cpu"]
-        finite = bool(torch.isfinite(card[dead]).all())
-        e_dead = max_abs(card[dead], cpu[dead]) if finite else float("nan")
-        e_live = max_abs(card[live], cpu[live])
-        print(f"[dead] step extract_demod={xd!r}, stations {dead} zeroed: "
-              f"their audio finite {finite}, card vs CPU max_abs "
-              f"{e_dead:.3e}, live stations {e_live:.3e} (bound "
-              f"{E2E_ABS_MAX:.0e})")
-        if not (finite and e_dead <= E2E_ABS_MAX and e_live <= E2E_ABS_MAX):
-            failures.append(f"{xd}: finite {finite}, dead {e_dead}, live "
-                            f"{e_live}")
+    if not extract_ifft:
+        spec_cpu = spec.cpu()
+        for xd in ("off", "fused", "spec"):
+            card = tail(device, spec, xd)[1].cpu()
+            cpu = tail("cpu", spec_cpu, xd)[1]
+            finite = bool(torch.isfinite(card[dead]).all())
+            e_dead = (max_abs(card[dead], cpu[dead]) if finite
+                      else float("nan"))
+            e_live = max_abs(card[live], cpu[live])
+            print(f"[dead] step extract_demod={xd!r}, stations {dead} "
+                  f"zeroed: their audio finite {finite}, card vs CPU "
+                  f"max_abs {e_dead:.3e}, live stations {e_live:.3e} "
+                  f"(bound {E2E_ABS_MAX:.0e})")
+            if not (finite and e_dead <= E2E_ABS_MAX
+                    and e_live <= E2E_ABS_MAX):
+                failures.append(f"{xd}: finite {finite}, dead {e_dead}, "
+                                f"live {e_live}")
+    else:
+        want = tail(device, spec)[1]
+    for impl in extract_ifft:
+        iq, audio = tail(device, spec, routes=Routes(extract_ifft=impl))
+        quad = quadrature_demod(iq)
+        zero = (bool((iq[dead] == 0).all())
+                and bool((quad[dead] == 0).all()))
+        finite = bool(torch.isfinite(audio).all())
+        err = max_abs(audio, want) if finite else float("nan")
+        print(f"[routes] dead stations {dead}, extract_ifft={impl!r}: IQ "
+              f"and quad exactly 0 {zero}; audio finite {finite}, against "
+              f"the default routes' max_abs {err:.3e} (bound "
+              f"{ROUTE_ABS_MAX:.0e})")
+        if not (zero and finite and err <= ROUTE_ABS_MAX):
+            failures.append(f"extract_ifft={impl}: zero {zero}, finite "
+                            f"{finite}, error {err}")
     if failures:
         raise AssertionError("dead stations through a whole step: "
                              + "; ".join(failures))
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the routes (``runtime/routes.Routes``) at the main plans.
+# ---------------------------------------------------------------------------
+ROUTE_CHUNKS = 2
+ROUTE_ABS_MAX = 1e-4   # audio against the default routes', on the card
+ROUTE_ENTRIES = tuple(f"K-FFT {e}" for e in (
+    "fft_pow2", "ifft_pow2", "rfft_pow2", "irfft_pow2"))
+# (label, stations, mode, Routes fields, counts that must stay 0, counts
+# that must exceed the default routes' on the same plan and mode).
+ROUTE_CASES = (
+    ("fast extract_ifft=native", N_STATIONS, "fast",
+     {"extract_ifft": "native"}, ("K-EXTRACT",), ()),
+    ("fast extract_ifft=fourstep", N_STATIONS, "fast",
+     {"extract_ifft": "fourstep"}, ("K-EXTRACT",), ()),
+    ("fast extract_ifft=pallas", N_STATIONS, "fast",
+     {"extract_ifft": "pallas"}, ("K-EXTRACT",), ("K-FFT ifft_pow2",)),
+    ("fast station_rfft=native", N_STATIONS, "fast",
+     {"station_rfft": "native"}, ("K-FFT rfft_pow2",), ()),
+    ("fast env_fft=pallas", N_STATIONS, "fast", {"env_fft": "pallas"},
+     (), ("K-FFT ifft_pow2", "K-FFT rfft_pow2")),
+    ("fast fir_impl=fft", N_STATIONS, "fast", {"fir_impl": "fft"},
+     ("K-FIR",), ()),
+    ("fast fir_impl=conv", N_STATIONS, "fast", {"fir_impl": "conv"},
+     ("K-FIR",), ()),
+    ("exact fft_kernel_min=2^16", N_STATIONS, "exact",
+     {"fft_kernel_min": 1 << 16}, (), ROUTE_ENTRIES),
+    ("fast fft_mixed_min=0", N_STATIONS_96, "fast", {"fft_mixed_min": 0},
+     ("K-MIXED",), ()),
+)
+DEAD_ROUTES = ("native", "fourstep", "pallas")
+
+
+def entry_counters() -> dict:
+    """K-FFT's launch counters by entry, named as in ``KERNELS``."""
+    from radiocore_tpu_torch.kernels import fft_rows
+    return {e: fft_rows.entry_launches[e.split()[1]] for e in ROUTE_ENTRIES}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def check_routes(device, gen, card: str) -> dict:
+    """Phase 16: ``make_multi_station_step`` under explicit ``Routes``
+    (never the environment) at 64 x 262 144 and, for K-MIXED's threshold,
+    96 x 262 144: each route's step time (CUDA events), launches by kernel
+    and K-FFT entry, and audio against the default routes' on the card
+    over the same chunks; then the extraction routes on dead stations.
+    Returns each run's launches by its label."""
+    from radiocore_tpu_torch.runtime.routes import Routes
+
+    plans, runs, failures = {}, {}, []
+    for label, c, mode, fields, zero, more in ROUTE_CASES:
+        if (c, mode) not in plans:
+            _, _, bands, want, base = run_main_path(
+                device, gen, c=c, chunks=ROUTE_CHUNKS, mode=mode,
+                also=entry_counters())
+            plans[(c, mode)] = (bands, want, base)
+            runs[f"{c} {mode}, default routes"] = base
+            print(f"[routes] {c} x {STATION} {mode}, default routes, "
+                  f"{ROUTE_CHUNKS} chunks: launches {_nonzero(base)}")
+        bands, want, base = plans[(c, mode)]
+        step, state, _, audios, counts = run_main_path(
+            device, gen, c=c, mode=mode, routes=Routes(**fields),
+            bands=bands, also=entry_counters())
+        runs[f"{c} {label}"] = counts
+        err = max(max_abs(a, w) for a, w in zip(audios, want))
+        print(f"[routes] {c} x {STATION} {label}: "
+              f"{step_ms(step, bands[0], state)}; {card}; launches in "
+              f"{ROUTE_CHUNKS} chunks {_nonzero(counts)}; audio against "
+              f"the default routes' max_abs {err:.3e} (bound "
+              f"{ROUTE_ABS_MAX:.0e})")
+        bad = ([f"{k} launched {counts[k]} times" for k in zero
+                if counts[k]]
+               + [f"{k} {counts[k]} launches, default {base[k]}"
+                  for k in more if counts[k] <= base[k]])
+        if not err <= ROUTE_ABS_MAX:
+            bad.append(f"audio {err} from the default routes'")
+        if bad:
+            failures.append(f"{label}: " + ", ".join(bad))
+        del step, state, audios
+    del plans
+    if failures:
+        raise AssertionError("[routes]: " + "; ".join(failures))
+    check_dead_step(device, gen, DEAD_ROUTES)
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2095,7 +2260,7 @@ def parallel_rank(rank: int, label: str) -> None:
               + f" ms ({label})", flush=True)
         # fast: the station rfft (K-FFT) and de-emphasis (K-FIR); exact:
         # three K-FIR launches a step. The band's local transforms (4096
-        # and 2^18 points) are below ops/fft.KERNEL_MIN: cuFFT.
+        # and 2^18 points) are below the default fft_kernel_min: cuFFT.
         fir_per_step = 3 if mode == "exact" else 1
         if ((mode == "fast" and launches["K-FFT"] <= 0)
                 or launches["K-FIR"] != fir_per_step * PAR_CHUNKS):
@@ -2202,13 +2367,75 @@ def parallel_rank(rank: int, label: str) -> None:
     torch.cuda.synchronize()
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# --paths / --compare: the default paths of two checkouts, on one card.
+# ---------------------------------------------------------------------------
+AB_PATHS = (("fast", N_STATIONS, "fast", "off"),
+            ("exact", N_STATIONS, "exact", "off"),
+            ("96 spec", N_STATIONS_96, "fast", "spec"))
+AB_CHUNKS = 2
+AB_DIR = Path("chiprun_out") / "paths"
+
+
+def record_paths(tag: str) -> None:
+    """The default paths of the package on ``sys.path``: step times and
+    launches printed, audio hashes and launches to ``AB_DIR/tag.json``."""
+    import hashlib
+    import torch
+    import radiocore_tpu_torch
+    from radiocore_tpu_torch.kernels import build
+    from radiocore_tpu_torch.runtime.platform import nvidia_smi_name_power
+
+    card = nvidia_smi_name_power().splitlines()[0]
+    print(f"[paths {tag}] package {Path(radiocore_tpu_torch.__file__).parent}")
+    build.build()
+    build.library()
+    device = torch.device("cuda", 0)
+    record = {}
+    for label, c, mode, xd in AB_PATHS:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        step, state, _, audios, counts = run_main_path(
+            device, gen, c=c, chunks=AB_CHUNKS, extract_demod=xd, mode=mode)
+        band = fm_band(gen, c, STATION, device)
+        print(f"[paths {tag}] {label}: {step_ms(step, band, state)}; "
+              f"{card}; launches in {AB_CHUNKS} chunks {counts}")
+        digest = hashlib.sha256()
+        for audio in audios:
+            digest.update(audio.cpu().contiguous().numpy().tobytes())
+        record[label] = {"sha256": digest.hexdigest(), "launches": counts}
+        del step, state, audios, band
+    AB_DIR.mkdir(parents=True, exist_ok=True)
+    (AB_DIR / f"{tag}.json").write_text(json.dumps(record))
+
+
+def compare_paths(a: str, b: str) -> int:
+    ra, rb = (json.loads((AB_DIR / f"{t}.json").read_text()) for t in (a, b))
+    same = True
+    for label in ra:
+        audio = ra[label]["sha256"] == rb[label]["sha256"]
+        counts = ra[label]["launches"] == rb[label]["launches"]
+        print(f"[paths] {label}: {a} against {b}: audio bit for bit "
+              f"{audio}, launches equal {counts} ({rb[label]['launches']})")
+        same = same and audio and counts
+    return 0 if same else 1
+
+
+def main(argv=()) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a "
               "GPU", file=sys.stderr)
         return 2
-    sys.path[:0] = [str(REPO), str(REPO / "tests")]
+    if len(argv) == 3 and argv[0] == "--compare":
+        return compare_paths(argv[1], argv[2])
+    if argv and not (argv[0] == "--paths" and len(argv) in (2, 3)):
+        print(__doc__, file=sys.stderr)
+        return 2
+    tree = Path(argv[2]).resolve() if len(argv) == 3 else REPO
+    sys.path[:0] = [str(tree), str(REPO / "tests")]
+    if argv:
+        record_paths(argv[1])
+        return 0
     from radiocore_tpu_torch.kernels import build
     from radiocore_tpu_torch.runtime.platform import nvidia_smi_name_power
 
@@ -2257,14 +2484,18 @@ def main() -> int:
     lap("start and build")
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    kstats, launches, main_step = {}, {}, {}
+    # runs: K-FFT's entries' launches by the run that made them.
+    kstats, launches, main_step, runs = {}, {}, {}, {}
 
     def phase_main():
         # Phase 2: kernels against their plain versions.
         kstats.update(check_kernels(device, gen))
         lap("kernels at the main shapes")
         # Phase 3: the main path.
-        step, state, band1, audio1, counts = run_main_path(device, gen)
+        step, state, bands, audios, counts = run_main_path(
+            device, gen, also=entry_counters())
+        band1, audio1 = bands[0], audios[0]
+        runs[f"{N_STATIONS} fast, main path"] = counts
         launches.update(counts)
         print(f"[main] {N_STATIONS} x {STATION} -> {AUDIO}, {CHUNKS} chunks: "
               f"audio {tuple(audio1.shape)} finite; launches {counts}")
@@ -2296,8 +2527,9 @@ def main() -> int:
         for xd, chunks in (("spec", CHUNKS), ("fused", CHUNKS_MODES),
                            ("off", CHUNKS_MODES)):
             what = f"96 {xd}"
-            step, state, band1, audio1, counts = run_main_path(
+            step, state, bands, audios, counts = run_main_path(
                 device, gen, c=c, chunks=chunks, extract_demod=xd)
+            band1, audio1 = bands[0], audios[0]
             print(f"[{what}] {c} x {STATION} -> {AUDIO}, {chunks} chunks: "
                   f"audio {tuple(audio1.shape)} finite; launches {counts}")
             for name, count in counts.items():
@@ -2314,7 +2546,7 @@ def main() -> int:
             against_cpu(what, c, band1, audio1, xd)
             if xd == "spec":
                 check_station(what + " station", step, c, device, xd)
-            del step, state, band1, audio1, band
+            del step, state, bands, audios, band1, audio1, band
             lap(f"path {what}")
 
     def phase_nco():
@@ -2341,6 +2573,11 @@ def main() -> int:
         check_dead_step(device, gen)
         lap("dead stations through whole steps")
 
+    def phase_routes():
+        # Phase 16: explicit routes; the K-FFT entries' launches.
+        runs.update(check_routes(device, gen, smi.splitlines()[0]))
+        lap("[routes]")
+
     def phase_parallel():
         # Phase 15: two ranks on this card over gloo.
         from radiocore_tpu_torch.parallel.dryrun import run_world
@@ -2366,14 +2603,21 @@ def main() -> int:
 
     for run_phase in (phase_main, phase_band, phase_dead, phase_paths96,
                       phase_nco, phase_firpilot, phase_exact, phase_ncopath,
-                      phase_classes, phase_deadstep, phase_apps,
-                      phase_parallel):
+                      phase_classes, phase_deadstep, phase_routes,
+                      phase_apps, phase_parallel):
         run_phase()
 
+    for name in ROUTE_ENTRIES:
+        # An entry's launches are those of the first run that made any
+        # (the main path for rfft_pow2), beside every run's own count.
+        by_run = {label: counts[name] for label, counts in runs.items()}
+        first = next(label for label, k in by_run.items() if k)
+        kstats[name].update(launches_run=first, launches_by_run=by_run)
+        launches[name] = by_run[first]
     print(f"[smoke] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name.split()[0]], **kstats[name]}
+         "launches": launches[name], **kstats[name]}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2382,4 +2626,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -14,12 +14,18 @@ an :class:`~radiocore_tpu_torch.runtime.ingest.IngestPipe`.
 
 Run headless (no SDR, ZMQ optional; ``--device cpu`` without a card):
     python -m radiocore_tpu_torch.apps.multi_fm_server --seconds 2 --no-zmq
+
+``main`` reads the JAX package's routing variables once
+(``Routes.from_environ``), prints them and hands them to the loop; with
+``--fused`` it also takes ``RADIOCORE_TPU_EXTRACT_DEMOD`` (``off``,
+``fused`` or ``spec``) as the fused step's ``extract_demod``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import List, Optional, Sequence
 
@@ -34,6 +40,7 @@ from radiocore_tpu_torch.runtime.ingest import IngestPipe
 from radiocore_tpu_torch.runtime.metrics import Metrics
 from radiocore_tpu_torch.runtime.platform import resolve_device
 from radiocore_tpu_torch.runtime.profiling import StageTimer
+from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import to_host
 from radiocore_tpu_torch.tools.tuner import Tuner
 
@@ -49,14 +56,17 @@ class StationSpec:
 
 def build_tuner(stations: Sequence[StationSpec], audio_rate: float,
                 request_bandwidth: Optional[float] = None, *,
-                device: Optional[torch.device | str] = None) -> Tuner:
+                device: Optional[torch.device | str] = None,
+                routes: Optional[Routes] = None) -> Tuner:
     """Register stations with demodulators on ``device`` (the first CUDA
     device when None), reference-style (reference:
-    multi_fm_server.py:125-136)."""
+    multi_fm_server.py:125-136); the tuner and every demodulator take
+    ``routes`` (None: the defaults)."""
     device = resolve_device(device)
-    tuner = Tuner(device=device)
+    tuner = Tuner(device=device, routes=routes)
     for spec in stations:
-        demod = DEMODS[spec.mode](spec.bandwidth, audio_rate, device=device)
+        demod = DEMODS[spec.mode](spec.bandwidth, audio_rate, device=device,
+                                  routes=routes)
         tuner.add_channel(spec.frequency, spec.bandwidth, demod)
     if request_bandwidth:
         tuner.request_bandwidth(request_bandwidth)
@@ -104,7 +114,9 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
                 metrics: Optional[Metrics] = None,
                 mode: str = "fast",
                 timer: Optional[StageTimer] = None, *,
-                device: Optional[torch.device | str] = None) -> None:
+                device: Optional[torch.device | str] = None,
+                routes: Optional[Routes] = None,
+                extract_demod: str = "off") -> None:
     """All-WBFM serving through the fused multi-station step on
     ``device`` (the first CUDA device when None): band FFT → all-station
     extraction → batched WBFM (``parallel/pipeline.py``). Requires
@@ -114,7 +126,8 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
     launches, the host's enqueue), ``fetch`` (waits on the audio, so the
     step's device time, and copies it to the host) and ``publish``. The
     pipe's host memcpy of each chunk into its page-locked slot, and the
-    launch of its copy, fall between the stages.
+    launch of its copy, fall between the stages. ``routes`` and
+    ``extract_demod`` go to ``make_multi_station_step``.
     """
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
 
@@ -127,7 +140,8 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
     offsets = [int(s.frequency - center) for s in specs]
     bw = int(specs[0].bandwidth)
     step, state = make_multi_station_step(
-        n_band, offsets, bw, int(audio_rate), mode=mode, device=device)
+        n_band, offsets, bw, int(audio_rate), mode=mode,
+        extract_demod=extract_demod, device=device, routes=routes)
     topics = [int(s.frequency).to_bytes(4, "little") for s in specs]
 
     pipe = IngestPipe(depth=2, device=device)  # chunk N+1's copy overlaps N
@@ -179,13 +193,17 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
+    routes = Routes.from_environ()
+    extract_demod = os.environ.get("RADIOCORE_TPU_EXTRACT_DEMOD", "off")
+    print(f"routes: {routes}" + (f", extract_demod={extract_demod}"
+                                 if args.fused else ""))
     base = 96.9e6
     modes = ["wbfm"] * 3 if args.fused else ["wbfm", "mfm", "fm"]
     specs = [StationSpec(base + i * 400e3,
                          modes[i % 3], args.bandwidth)
              for i in range(args.stations)]
     tuner = build_tuner(specs, args.audio_rate, args.band_rate,
-                        device=device)
+                        device=device, routes=routes)
 
     n_band = int(tuner.input_bandwidth)
     offsets = [int(s.frequency - tuner.input_frequency) for s in specs]
@@ -209,7 +227,8 @@ def main(argv=None) -> None:
         if args.fused:
             serve_fused(specs, tuner.input_bandwidth, args.audio_rate,
                         source, args.seconds, publisher, sinks, metrics,
-                        timer=timer, device=device)
+                        timer=timer, device=device, routes=routes,
+                        extract_demod=extract_demod)
         else:
             serve(tuner, source, args.seconds, publisher, sinks, metrics,
                   timer=timer)

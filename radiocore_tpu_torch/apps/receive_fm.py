@@ -12,6 +12,11 @@ memory only.
 
 Run headless (``--device cpu`` without a card):
     python -m radiocore_tpu_torch.apps.receive_fm --seconds 3 --out fm.wav
+
+``main`` reads the JAX package's routing variables once
+(``Routes.from_environ``: ``RADIOCORE_TPU_FFT_PALLAS_MIN``,
+``RADIOCORE_TPU_FIR_IMPL``, ...), prints them and hands them to
+:func:`run`.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from radiocore_tpu_torch.runtime.ingest import IngestPipe
 from radiocore_tpu_torch.runtime.metrics import Metrics
 from radiocore_tpu_torch.runtime.platform import resolve_device
 from radiocore_tpu_torch.runtime.profiling import StageTimer
+from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import to_host
 from radiocore_tpu_torch.tools.ringbuffer import RingBuffer
 
@@ -52,7 +58,8 @@ def run(config: Config, source, sink, seconds: float,
         realtime_source: bool = False,
         ring_seconds: float = 3.0,
         warmup: bool = False, *,
-        device: Optional[torch.device | str] = None) -> None:
+        device: Optional[torch.device | str] = None,
+        routes: Optional[Routes] = None) -> None:
     """Pump ``seconds`` of IQ through the pipeline on ``device`` (the
     first CUDA device when None) into ``sink``.
 
@@ -65,7 +72,8 @@ def run(config: Config, source, sink, seconds: float,
 
     ``warmup`` keeps the reference's semantics: it runs one real chunk of
     the source through the pipeline before the producer starts, so that
-    chunk is consumed and primes the demodulator's state.
+    chunk is consumed and primes the demodulator's state. ``routes``
+    (None: the defaults) goes to the decimator and the demodulator.
     """
     device = resolve_device(device)
     metrics = metrics or Metrics()
@@ -84,14 +92,16 @@ def run(config: Config, source, sink, seconds: float,
     ring = RingBuffer(int(in_chunk * ring_seconds), dtype="complex64",
                       print_overflow=False)
 
-    decimate = Decimate(in_chunk, config.demod_chunk, device=device)
+    decimate = Decimate(in_chunk, config.demod_chunk, device=device,
+                        routes=routes)
     if _is_stereo(config):
         demod = WBFM(config.demod_chunk, config.audio_chunk,
                      deemphasis=config.deemphasis, mode=wbfm_mode,
-                     device=device)
+                     device=device, routes=routes)
     else:
         demod = MFM(config.demod_chunk, config.audio_chunk,
-                    deemphasis=config.deemphasis, device=device)
+                    deemphasis=config.deemphasis, device=device,
+                    routes=routes)
 
     n_chunks = int(round(seconds))
     stop = threading.Event()
@@ -185,6 +195,8 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
+    routes = Routes.from_environ()
+    print(f"routes: {routes}")
     config = PipelineConfig(
         input_rate=args.input_rate, demod_rate=args.demod_rate,
         audio_rate=args.audio_rate, center_frequency=args.frequency,
@@ -212,7 +224,7 @@ def main(argv=None) -> None:
         sink_cm = WavSink(args.out, int(config.audio_rate))
     with sink_cm as sink:
         run(config, source, sink, args.seconds, metrics, timer=timer,
-            device=device)
+            device=device, routes=routes)
     snap = metrics.snapshot()
     dest = "audio device" if args.play else args.out
     print(f"wrote {dest}: {int(snap.get('chunks_out', 0))} s audio, "

@@ -53,6 +53,23 @@ class LaunchCounter:
 
 
 launches = LaunchCounter()
+# The same launches by the entry that made them: ``fft_pow2`` and
+# ``ifft_pow2`` (rows of at most MAX_ROW, forward and backward, whichever
+# wrapper or route asked), ``rfft_pow2``, ``irfft_pow2`` (each with its
+# untangle or tangle) and ``fft_large_pow2`` (longer rows).
+entry_launches = {name: LaunchCounter() for name in (
+    "fft_pow2", "ifft_pow2", "rfft_pow2", "irfft_pow2", "fft_large_pow2")}
+
+
+def _row_entry(n: int, sign: float) -> str:
+    if n > MAX_ROW:
+        return "fft_large_pow2"
+    return "fft_pow2" if sign < 0 else "ifft_pow2"
+
+
+def _count(entry: str, made: int) -> None:
+    launches.count += made
+    entry_launches[entry].count += made
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,8 +164,11 @@ def plan(n: int, batch: int) -> Tuple[Pass, ...]:
     return (first, second, third)
 
 
-def _fft_kernel(x: torch.Tensor, sign: float) -> torch.Tensor:
-    """Launch the pass plan on a contiguous complex64 CUDA tensor."""
+def _fft_kernel(x: torch.Tensor, sign: float,
+                entry: str = "") -> torch.Tensor:
+    """Launch the pass plan on a contiguous complex64 CUDA tensor,
+    counting its launches on :data:`launches` and on ``entry``'s counter
+    (by default the row entry of its length and sign)."""
     if x.dtype != torch.complex64:
         raise TypeError(f"fft_rows: kernel takes complex64, got {x.dtype}")
     if not x.is_contiguous():
@@ -159,7 +179,10 @@ def _fft_kernel(x: torch.Tensor, sign: float) -> torch.Tensor:
     bufs = {"x": x, "y": y}
     if any("s" in (p.src, p.dst) for p in passes):
         bufs["s"] = torch.empty_like(x)
+    before = launches.count
     launch_passes(passes, bufs, sign, launches, f"n={n}")
+    entry_launches[entry or _row_entry(n, sign)].count += (
+        launches.count - before)
     return y
 
 
@@ -270,14 +293,14 @@ def rfft_pow2(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("rfft_pow2: kernel takes a contiguous tensor")
     from radiocore_tpu_torch.kernels import build
     z = _fft_kernel(torch.view_as_complex(x.view(x.shape[:-1] + (h, 2))),
-                    -1.0)
+                    -1.0, "rfft_pow2")
     out = torch.empty(x.shape[:-1] + (h + 1,), dtype=torch.complex64,
                       device=x.device)
     err = build.library().rc_rfft_untangle(
         z.data_ptr(), out.data_ptr(), z.numel() // h, h,
         torch.cuda.current_stream().cuda_stream)
     build.check(err, f"rc_rfft_untangle(n={n})")
-    launches.count += 1
+    _count("rfft_pow2", 1)
     return out
 
 
@@ -310,8 +333,8 @@ def irfft_pow2(X: torch.Tensor, n: int) -> torch.Tensor:
         X.data_ptr(), z.data_ptr(), z.numel() // h, h,
         torch.cuda.current_stream().cuda_stream)
     build.check(err, f"rc_irfft_tangle(n={n})")
-    launches.count += 1
-    y = _fft_kernel(z, +1.0)
+    _count("irfft_pow2", 1)
+    y = _fft_kernel(z, +1.0, "irfft_pow2")
     return torch.view_as_real(y).reshape(X.shape[:-1] + (n,))
 
 

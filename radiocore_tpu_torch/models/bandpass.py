@@ -13,6 +13,7 @@ import torch
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops.fir import zero_phase_fir
 from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import (as_torch_dtype,
                                                   to_device_c64,
                                                   to_device_f32)
@@ -25,11 +26,13 @@ class Bandpass:
                  dtype: Union[str, torch.dtype] = "float32",
                  num_taps: int = 61, window: str = "hamm",
                  cuda: bool = False, *,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 routes: Optional[Routes] = None):
         del cuda  # kept for the reference's signature; ``device`` decides
         self._input_size = int(input_size)
         self._dtype = as_torch_dtype(dtype)
         self._device = resolve_device(device)
+        self._routes = routes
         self._taps = design.bandpass_taps(num_taps, float(start_freq),
                                           float(stop_freq), self._input_size,
                                           win=window)
@@ -45,4 +48,4 @@ class Bandpass:
             raise ValueError("input_sig size and input_size mismatch")
         put = to_device_c64 if self._dtype.is_complex else to_device_f32
         x = put(input_sig, self._device).to(self._dtype)
-        return zero_phase_fir(x, self._taps)
+        return zero_phase_fir(x, self._taps, routes=self._routes)

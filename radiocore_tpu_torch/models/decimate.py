@@ -16,6 +16,7 @@ from radiocore_tpu_torch.ops.resample import (real_resample_weights,
                                               resample_real,
                                               resample_spectrum)
 from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import (to_device_c64,
                                                   to_device_f32)
 
@@ -23,11 +24,13 @@ from radiocore_tpu_torch.runtime.transfer import (to_device_c64,
 class Decimate:
     def __init__(self, input_size: Union[int, float],
                  output_size: Union[int, float], cuda: bool = False, *,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 routes: Optional[Routes] = None):
         del cuda  # kept for the reference's signature; ``device`` decides
         self._input_size = int(input_size)
         self._output_size = int(output_size)
         self._device = resolve_device(device)
+        self._routes = routes
         win = design.resample_window("hamm", self._input_size)
         self._c_win = HostConst(win.astype(np.float32))
         self._c_real = HostConst(real_resample_weights(
@@ -43,7 +46,8 @@ class Decimate:
         if is_complex:
             x = to_device_c64(input_sig, self._device)
             return resample_spectrum(
-                _fft.fft(x) * self._c_win.on(self._device), self._output_size)
+                _fft.fft(x, self._routes) * self._c_win.on(self._device),
+                self._output_size, self._routes)
         x = to_device_f32(input_sig, self._device)
         return resample_real(x, self._output_size,
-                             self._c_real.on(self._device))
+                             self._c_real.on(self._device), self._routes)

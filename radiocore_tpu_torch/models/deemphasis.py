@@ -12,6 +12,7 @@ import torch
 from radiocore_tpu_torch.ops.deemphasis import (deemphasis_apply,
                                                 deemphasis_init)
 from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import (as_torch_dtype,
                                                   to_device_f32)
 
@@ -20,11 +21,13 @@ class Deemphasis:
     def __init__(self, input_size: Union[int, float], rate: float = 75e-6,
                  dtype: Union[str, torch.dtype] = "float32",
                  cuda: bool = False, *,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 routes: Optional[Routes] = None):
         del cuda  # kept for the reference's signature; ``device`` decides
         self._input_size = int(input_size)
         self._dtype = as_torch_dtype(dtype)
         self._device = resolve_device(device)
+        self._routes = routes
         self._taps, self._state = deemphasis_init(
             self._input_size, rate, dtype=self._dtype, device=self._device)
 
@@ -33,5 +36,6 @@ class Deemphasis:
         if len(input_sig) != self._input_size:
             raise ValueError("input_sig size and input_size mismatch")
         x = to_device_f32(input_sig, self._device).to(self._dtype)
-        y, self._state = deemphasis_apply(x, self._taps, self._state)
+        y, self._state = deemphasis_apply(x, self._taps, self._state,
+                                          self._routes)
         return y

@@ -16,15 +16,18 @@ from radiocore_tpu_torch.ops.demod import quadrature_demod
 from radiocore_tpu_torch.ops.resample import (real_resample_weights,
                                               resample_real)
 from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import to_device_c64, to_host
 
 
-def make_fm_step(input_size: int, output_size: int
+def make_fm_step(input_size: int, output_size: int,
+                 routes: Optional[Routes] = None
                  ) -> Callable[[torch.Tensor], torch.Tensor]:
     """FM step: ``iq (..., input_size) c64 → audio (..., output_size) f32``.
 
     Stateless. The spectral hamming window is applied even when the two
     sizes are equal, as the reference's internal resampler does.
+    ``routes`` routes the resample's transforms (``ops/fft``).
     """
     input_size, output_size = int(input_size), int(output_size)
     win = design.resample_window("hamm", input_size)
@@ -33,25 +36,28 @@ def make_fm_step(input_size: int, output_size: int
 
     def step(iq: torch.Tensor) -> torch.Tensor:
         demod = quadrature_demod(iq)
-        return resample_real(demod, output_size,
-                             c_w.on(iq.device)).to(torch.float32)
+        return resample_real(demod, output_size, c_w.on(iq.device),
+                             routes).to(torch.float32)
 
     return step
 
 
 class FM:
     """Stateful wrapper with the reference ``run`` API; output ``(N, 1)``.
-    Runs on ``device`` (the first CUDA device when None)."""
+    Runs on ``device`` (the first CUDA device when None) through
+    ``routes`` (None: the defaults)."""
 
     def __init__(self, input_size: Union[int, float],
                  output_size: Union[int, float],
                  deemphasis: float = 75e-6, cuda: bool = False, *,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 routes: Optional[Routes] = None):
         del deemphasis, cuda  # kept for the reference's signature, unused
         self._input_size = int(input_size)
         self._output_size = int(output_size)
         self._device = resolve_device(device)
-        self._step = make_fm_step(self._input_size, self._output_size)
+        self._step = make_fm_step(self._input_size, self._output_size,
+                                  routes)
 
     @property
     def channels(self) -> int:

@@ -13,6 +13,7 @@ from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops.deemphasis import (deemphasis_apply,
                                                 deemphasis_init)
 from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import to_device_c64, to_host
 
 CLIP = 0.999
@@ -30,16 +31,19 @@ def mfm_init_state(output_size: int, rate: float = 75e-6,
 
 
 def make_mfm_step(input_size: int, output_size: int,
-                  deemphasis: float = 75e-6
+                  deemphasis: float = 75e-6,
+                  routes: Optional[Routes] = None
                   ) -> Callable[[torch.Tensor, State],
                                 Tuple[torch.Tensor, State]]:
     """MFM step: ``(iq (..., input_size), state) → (audio
-    (..., output_size), state)``."""
-    fm = make_fm_step(input_size, output_size)
+    (..., output_size), state)``; ``routes`` routes the transforms and
+    the de-emphasis FIR."""
+    fm = make_fm_step(input_size, output_size, routes)
     de_taps = design.deemphasis_taps(int(output_size), deemphasis)
 
     def step(iq: torch.Tensor, state: State) -> Tuple[torch.Tensor, State]:
-        audio, hist = deemphasis_apply(fm(iq), de_taps, state["deemph"])
+        audio, hist = deemphasis_apply(fm(iq), de_taps, state["deemph"],
+                                       routes)
         audio = audio - torch.mean(audio, dim=-1, keepdim=True)
         audio = torch.clamp(audio, -CLIP, CLIP)
         return audio.to(torch.float32), {"deemph": hist}
@@ -49,18 +53,20 @@ def make_mfm_step(input_size: int, output_size: int,
 
 class MFM:
     """Stateful wrapper with the reference ``run`` API; output ``(N, 1)``.
-    Runs on ``device`` (the first CUDA device when None)."""
+    Runs on ``device`` (the first CUDA device when None) through
+    ``routes`` (None: the defaults)."""
 
     def __init__(self, input_size: Union[int, float],
                  output_size: Union[int, float],
                  deemphasis: float = 75e-6, cuda: bool = False, *,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 routes: Optional[Routes] = None):
         del cuda  # kept for the reference's signature; ``device`` decides
         self._input_size = int(input_size)
         self._output_size = int(output_size)
         self._device = resolve_device(device)
         self._step = make_mfm_step(self._input_size, self._output_size,
-                                   deemphasis)
+                                   deemphasis, routes)
         self._state = mfm_init_state(self._output_size, deemphasis,
                                      device=self._device)
 

@@ -12,15 +12,18 @@ import torch
 
 from radiocore_tpu_torch.ops.analytic import analytic_signal, pll_harmonic
 from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import (to_device_c64,
                                                   to_device_f32)
 
 
 class PLL:
     def __init__(self, cuda: bool = False, *,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 routes: Optional[Routes] = None):
         del cuda  # kept for the reference's signature; ``device`` decides
         self._device = resolve_device(device)
+        self._routes = routes
         self._baseline = None
 
     def step(self, input_sig) -> None:
@@ -28,7 +31,8 @@ class PLL:
                       if isinstance(input_sig, torch.Tensor)
                       else np.iscomplexobj(input_sig))
         put = to_device_c64 if is_complex else to_device_f32
-        self._baseline = analytic_signal(put(input_sig, self._device))
+        self._baseline = analytic_signal(put(input_sig, self._device),
+                                         self._routes)
 
     def real(self, mult: float = 1.0) -> torch.Tensor:
         """Real part of the locked carrier at harmonic ``mult`` (cosine)."""

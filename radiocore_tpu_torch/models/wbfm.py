@@ -17,6 +17,13 @@ small pow2 rate n2 (the 38 kHz carriers cancel), and the stereo matrix
 is decimated by truncating the spectrum. Chunk sizes too small for the
 38 kHz slice take the legacy spectrum-reuse path instead. The JAX
 module's docstring has the derivation.
+
+``routes`` (:class:`~radiocore_tpu_torch.runtime.routes.Routes`) routes
+every transform through ``ops/fft``, the FIRs by ``fir_impl``, and, with
+``env_fft="pallas"``, the envelope-rate transforms to K-FFT
+(``fft_pow2`` backward for the envelopes, ``rfft_pow2`` for the L−R
+channel) where their size is a row, as the reference's
+``RADIOCORE_TPU_ENV_FFT`` does.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from radiocore_tpu_torch.kernels import fft_rows
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops import fft as _fft
 from radiocore_tpu_torch.ops.analytic import analytic_signal, pll_harmonic
@@ -40,6 +48,7 @@ from radiocore_tpu_torch.ops.resample import (_fold_window_onesided,
                                               real_resample_weights,
                                               resample_real)
 from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.routes import Routes, resolve
 from radiocore_tpu_torch.runtime.transfer import to_device_c64, to_host
 
 # De-emphasis histories, plus ``"pll"`` (a ``PLLState``) with pll='nco'.
@@ -68,7 +77,8 @@ def wbfm_init_state(output_size: int, rate: float = 75e-6,
 
 def make_wbfm_step(input_size: int, output_size: int,
                    deemphasis: float = 75e-6, mode: str = "exact",
-                   pll: str = "analytic", pll_loop_bw: float = 50.0
+                   pll: str = "analytic", pll_loop_bw: float = 50.0,
+                   routes: Optional[Routes] = None
                    ) -> Callable[[torch.Tensor, State],
                                  Tuple[torch.Tensor, State]]:
     """Build the WBFM step for static chunk sizes.
@@ -83,7 +93,8 @@ def make_wbfm_step(input_size: int, output_size: int,
     only) tracks the pilot with the feedback loop of ``ops/nco_pll.py``
     and carries its state as ``state["pll"]``. On a dead station (zero
     IQ) the exact mode with the analytic pilot gives NaN audio, the fast
-    modes silence.
+    modes silence. ``routes`` (None: the defaults) routes the transforms
+    and FIRs (module docstring).
     """
     if pll not in ("analytic", "nco"):
         raise ValueError(f"unknown pll {pll!r}; 'analytic' or 'nco'")
@@ -92,6 +103,7 @@ def make_wbfm_step(input_size: int, output_size: int,
                          "no explicit pilot time series)")
     if mode not in ("exact", "fast", "fast_spec"):
         raise ValueError(f"unknown mode {mode!r}")
+    routes = resolve(routes)
     n, m = int(input_size), int(output_size)
     win = design.resample_window("hamm", n)
     bp_taps = design.bandpass_taps(PILOT_TAPS, PILOT_LO, PILOT_HI, n)
@@ -105,8 +117,9 @@ def make_wbfm_step(input_size: int, output_size: int,
     def step_exact(iq: torch.Tensor, state: State
                    ) -> Tuple[torch.Tensor, State]:
         dev = iq.device
-        comp = resample_real(quadrature_demod(iq), n, c_lowpass.on(dev))
-        pilot = zero_phase_fir(comp, bp_taps)
+        comp = resample_real(quadrature_demod(iq), n, c_lowpass.on(dev),
+                             routes)
+        pilot = zero_phase_fir(comp, bp_taps, routes=routes)
         extra = {}
         if pll == "nco":
             # Feedback carrier tracking: the loop bandwidth rejects the
@@ -118,11 +131,13 @@ def make_wbfm_step(input_size: int, output_size: int,
             traj, extra["pll"] = nco_pll_track(norm, nco_gains, state["pll"])
             subcarrier = pll_subcarrier(traj, 2, "imag")
         else:
-            subcarrier = pll_harmonic(analytic_signal(pilot), 2, "imag")
+            subcarrier = pll_harmonic(analytic_signal(pilot, routes), 2,
+                                      "imag")
         lmr = subcarrier * comp * STEREO_GAIN
         # Both stereo legs through one batched resample.
         legs = torch.stack([comp + lmr, comp - lmr], dim=-2)
-        return _finish(resample_real(legs, m, c_decim.on(dev)), state, extra)
+        return _finish(resample_real(legs, m, c_decim.on(dev), routes),
+                       state, extra)
 
     n_rfft = n // 2 + 1
     w1 = _fold_window_onesided(win, n_rfft)
@@ -161,6 +176,17 @@ def make_wbfm_step(input_size: int, output_size: int,
     else:
         c_w1 = HostConst(w1.astype(np.float32))
         c_pilot = HostConst(pilot_weights)
+    env_kernel = routes.env_fft == "pallas" and (n2 & (n2 - 1)) == 0
+
+    def _ifft_env(z: torch.Tensor) -> torch.Tensor:
+        if env_kernel and fft_rows.MIN_ROW <= n2 <= fft_rows.MAX_ROW:
+            return fft_rows.fft_pow2(z, +1.0) / n2
+        return _fft.ifft(z, routes)
+
+    def _rfft_env(x: torch.Tensor) -> torch.Tensor:
+        if env_kernel and fft_rows.MIN_ROW <= n2 // 2 <= fft_rows.MAX_ROW:
+            return fft_rows.rfft_pow2(x)
+        return _fft.rfft(x, routes)
 
     def _lmr_env(q_spec: torch.Tensor) -> torch.Tensor:
         """w1-weighted L−R at the envelope rate n2 (real, (..., n2))."""
@@ -169,7 +195,7 @@ def make_wbfm_step(input_size: int, output_size: int,
                         device=dev)
         z[..., 0, :s1 - s0] = q_spec[..., s0:s1] * c_pw.on(dev)
         z[..., 1, :e2 - s2] = q_spec[..., s2:e2] * c_wc.on(dev)
-        env = _fft.ifft(z)
+        env = _ifft_env(z)
         a, v = env[..., 0, :], env[..., 1, :]
         u = a * a
         # A dead channel (zero pilot band) gets a zero subcarrier, not NaN.
@@ -181,27 +207,28 @@ def make_wbfm_step(input_size: int, output_size: int,
         """Fast-mode tail from the composite (quad) rfft spectrum."""
         dev = q_spec.device
         if use_env:
-            lmr_trunc = _fft.rfft(_lmr_env(q_spec))[..., :m2]
+            lmr_trunc = _rfft_env(_lmr_env(q_spec))[..., :m2]
             comp_trunc = q_spec[..., :m2] * c_w1m2.on(dev)
         else:
             c_spec = q_spec * c_w1.on(dev)
-            comp = _fft.irfft(c_spec, n=n)
+            comp = _fft.irfft(c_spec, n, routes)
             z = torch.zeros(c_spec.shape[:-1] + (n,), dtype=c_spec.dtype,
                             device=dev)
             z[..., :n_rfft] = c_spec * c_pilot.on(dev)
-            subcarrier = pll_harmonic(_fft.ifft(z), 2, "imag")
+            subcarrier = pll_harmonic(_fft.ifft(z, routes), 2, "imag")
             lmr = subcarrier * comp * STEREO_GAIN
-            lmr_trunc = _fft.rfft(lmr)[..., :m2]
+            lmr_trunc = _fft.rfft(lmr, routes)[..., :m2]
             comp_trunc = c_spec[..., :m2]
         # One batched irfft for both stereo legs.
         legs = torch.stack([comp_trunc + lmr_trunc,
                             comp_trunc - lmr_trunc], dim=-2)
-        lr = _fft.irfft(legs * c_wdec.on(dev) / s_fac, n=m)
+        lr = _fft.irfft(legs * c_wdec.on(dev) / s_fac, m, routes)
         return _finish(lr, state)
 
     def step_fast(iq: torch.Tensor, state: State
                   ) -> Tuple[torch.Tensor, State]:
-        return step_fast_spec(_fft.rfft(quadrature_demod(iq)), state)
+        return step_fast_spec(_fft.rfft(quadrature_demod(iq), routes),
+                              state)
 
     def _finish(lr, state, extra=None):
         """De-emphasis of both stereo legs, ``lr`` (..., 2, m), in one
@@ -209,7 +236,7 @@ def make_wbfm_step(input_size: int, output_size: int,
         measured faster than one per leg: PERF.md); the state keeps a
         history per leg, and whatever ``extra`` adds."""
         hist = torch.stack([state["deemph_l"], state["deemph_r"]], dim=-2)
-        y, hist = deemphasis_apply(lr, de_taps, hist)
+        y, hist = deemphasis_apply(lr, de_taps, hist, routes)
         l, r = y[..., 0, :], y[..., 1, :]
         hist_l, hist_r = hist[..., 0, :], hist[..., 1, :]
         audio = torch.stack([l, r], dim=-1)
@@ -229,19 +256,22 @@ class WBFM:
     """Stateful WBFM demodulator with the reference's ``run`` API:
     ``run(input_sig, numpy_output=True)`` gives ``(output_size, 2)``
     stereo audio and carries the state across calls. Runs on ``device``
-    (the first CUDA device when None)."""
+    (the first CUDA device when None) through ``routes`` (None: the
+    defaults)."""
 
     def __init__(self, input_size: Union[int, float],
                  output_size: Union[int, float],
                  deemphasis: float = 75e-6, cuda: bool = False,
                  mode: str = "exact", pll: str = "analytic", *,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 routes: Optional[Routes] = None):
         del cuda  # kept for the reference's signature; ``device`` decides
         self._input_size = int(input_size)
         self._output_size = int(output_size)
         self._device = resolve_device(device)
         self._step = make_wbfm_step(self._input_size, self._output_size,
-                                    deemphasis, mode=mode, pll=pll)
+                                    deemphasis, mode=mode, pll=pll,
+                                    routes=routes)
         self._state = wbfm_init_state(self._output_size, deemphasis, pll=pll,
                                       device=self._device)
 

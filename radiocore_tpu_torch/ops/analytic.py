@@ -4,11 +4,13 @@ counterpart of ``radiocore_tpu/ops/analytic.py``."""
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops import fft as _fft
+from radiocore_tpu_torch.runtime.routes import Routes
 
 
 @functools.lru_cache(maxsize=16)
@@ -18,11 +20,12 @@ def _hilbert(n: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
-def analytic_signal(x: torch.Tensor) -> torch.Tensor:
+def analytic_signal(x: torch.Tensor,
+                    routes: Optional[Routes] = None) -> torch.Tensor:
     """Analytic signal along the last axis: FFT, zero the negative
     frequencies, IFFT; as ``scipy.signal.hilbert``. ``x`` must be real."""
-    return _fft.ifft(_fft.fft(x) * _hilbert(int(x.shape[-1]), x.device,
-                                            x.dtype))
+    h = _hilbert(int(x.shape[-1]), x.device, x.dtype)
+    return _fft.ifft(_fft.fft(x, routes) * h, routes)
 
 
 def pll_harmonic(analytic: torch.Tensor, mult: int = 1,

@@ -5,23 +5,36 @@ For channel c with spectrum roll ``s_c``, scipy's
 ``resample(roll(X, s_c)·W, m, domain='freq')`` keeps bins that form one
 contiguous (wrapping) run of the unrolled spectrum, so extraction is a
 static slice per channel, a reorder with the window, and one batched
-IFFT. A plan whose runs tile the band uniformly goes, for a 1-D CUDA
-spectrum that ``extract_ok`` accepts, to K-EXTRACT
-(``kernels/extract.py``).
+IFFT. ``routes.extract_ifft`` picks the lowering, as the reference's
+``RADIOCORE_TPU_EXTRACT_IFFT`` does:
+
+- ``auto``: a plan whose runs tile the band uniformly goes, for a 1-D
+  CUDA spectrum that ``extract_ok`` accepts, to K-EXTRACT
+  (``kernels/extract.py``); anything else as ``native``;
+- ``fused``: the same on either device (K-EXTRACT's plain version for a
+  CPU spectrum);
+- ``pallas``: the reorder in torch, then K-FFT's ``fft_pow2`` backward
+  with the whole scale ``1/(s_fac·m)`` folded into its input, when m is
+  a power of two in ``[MIN_ROW, MAX_ROW]`` (its plain version on the
+  CPU); ``native`` otherwise;
+- ``fourstep``: the reorder, then ``ops.fft.ifft_decomposed``;
+- ``native``: the reorder, then ``ops.fft.ifft``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from radiocore_tpu_torch.kernels import fft_rows
 from radiocore_tpu_torch.kernels.extract import extract_ok, extract_rows
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops import fft as _fft
 from radiocore_tpu_torch.ops.consts import HostConst
+from radiocore_tpu_torch.runtime.routes import Routes, resolve
 
 
 def extraction_plan(n: int, shifts: Sequence[int], bandwidth: int):
@@ -62,24 +75,50 @@ def uniform_extraction_start(n: int, shifts: Sequence[int],
     return starts[0] if _is_uniform(n, starts, m) else None
 
 
-@functools.lru_cache(maxsize=32)
-def make_extractor(n: int, shifts: Tuple[int, ...],
-                   bandwidth: int) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_extractor(n: int, shifts: Sequence[int], bandwidth: int,
+                   routes: Optional[Routes] = None
+                   ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``spectrum (..., n) → channels (..., C, bandwidth)``.
 
     Two lowerings: the uniform one (all runs are one rolled spectrum
-    reshaped ``(C, m)``) and one static slice per channel otherwise.
+    reshaped ``(C, m)``) and one static slice per channel otherwise; the
+    inverse transform by ``routes.extract_ifft`` (module docstring).
+    Built once per plan and routes: two routes give two extractors.
     """
-    m = int(bandwidth)
+    return _extractor(int(n), tuple(int(s) for s in shifts), int(bandwidth),
+                      resolve(routes))
+
+
+@functools.lru_cache(maxsize=32)
+def _extractor(n: int, shifts: Tuple[int, ...], m: int,
+               routes: Routes) -> Callable[[torch.Tensor], torch.Tensor]:
     c = len(shifts)
     starts, w_out, w_fix, m2, run = extraction_plan(n, shifts, m)
     neg = m - m2
     s_fac = n / m
     w_c = HostConst(w_out)
     fix = float(w_fix) if w_fix is not None else None
+    impl = routes.extract_ifft
+    row = ((m & (m - 1)) == 0
+           and fft_rows.MIN_ROW <= m <= fft_rows.MAX_ROW)
 
     def finish(y_all: torch.Tensor) -> torch.Tensor:
-        return _fft.ifft(y_all / s_fac)
+        if impl == "pallas" and row:
+            # The unnormalized backward DFT with the whole scale folded
+            # into its input, as the reference's ``pallas`` route.
+            return fft_rows.fft_pow2((y_all / (s_fac * m)).contiguous(),
+                                     +1.0)
+        if impl == "fourstep":
+            return _fft.ifft_decomposed(y_all / s_fac, routes)
+        return _fft.ifft(y_all / s_fac, routes)
+
+    def kernel_ok(spectrum: torch.Tensor) -> bool:
+        """K-EXTRACT takes the plan (or its plain version on the CPU)."""
+        if impl not in ("auto", "fused") or m % 2 or spectrum.dim() != 1:
+            return False
+        if impl == "auto" and not spectrum.is_cuda:
+            return False
+        return extract_ok(n, m, c)
 
     def reorder(sl: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Run ``sl`` (..., run) in raw order → windowed output order."""
@@ -93,8 +132,7 @@ def make_extractor(n: int, shifts: Tuple[int, ...],
 
     def extract_uniform(spectrum: torch.Tensor) -> torch.Tensor:
         a0 = starts[0]
-        if (spectrum.is_cuda and m % 2 == 0 and spectrum.dim() == 1
-                and extract_ok(n, m, c)):
+        if kernel_ok(spectrum):
             return extract_rows(spectrum.contiguous(), a0, c, m,
                                 1.0 / (s_fac * m))
         base = torch.cat([spectrum[..., a0:], spectrum[..., :a0],

@@ -4,13 +4,14 @@ history, carried between one-second chunks."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops.fir import fir_stream
+from radiocore_tpu_torch.runtime.routes import Routes
 
 
 def deemphasis_init(input_size: int, rate: float = 75e-6,
@@ -27,8 +28,9 @@ def deemphasis_init(input_size: int, rate: float = 75e-6,
     return taps, hist
 
 
-def deemphasis_apply(x: torch.Tensor, taps,
-                     history: torch.Tensor) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
-    """Apply de-emphasis to one chunk; returns ``(audio, new_history)``."""
-    return fir_stream(x, taps, history)
+def deemphasis_apply(x: torch.Tensor, taps, history: torch.Tensor,
+                     routes: Optional[Routes] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply de-emphasis to one chunk; returns ``(audio, new_history)``.
+    The FIR's slot follows ``routes.fir_impl`` (``ops.fir.fir_route``)."""
+    return fir_stream(x, taps, history, routes)

@@ -3,9 +3,9 @@ counterpart of ``radiocore_tpu/ops/fir.py``.
 
 All functions take arbitrary leading batch dimensions and work on the
 last axis. :func:`fir_causal` chooses its slot from the tensor's device,
-dtype and length and from the tap count *before* anything runs
-(:func:`fir_route`): K-FIR (``kernels/fir.py``), its plain version, or
-the overlap-save FFT form.
+dtype and length, the tap count and, for ``impl="auto"``,
+``routes.fir_impl`` *before* anything runs (:func:`fir_route`): K-FIR
+(``kernels/fir.py``), its plain version, or the overlap-save FFT form.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from radiocore_tpu_torch.kernels import fir as kfir
 from radiocore_tpu_torch.ops import fft as _fft
+from radiocore_tpu_torch.runtime.routes import Routes, resolve
 
 KERNEL_MIN_LEN = 16384
 
@@ -28,26 +29,40 @@ _IMPL = {"auto": "auto", "kernel": "kernel", "pallas": "kernel",
 
 
 def _use_kernel(x: torch.Tensor, taps) -> bool:
-    """The JAX routing rule (``ops/fir.py`` impl='auto'): long real
-    float32 signals with host NumPy taps go to the kernel, on CUDA."""
+    """The JAX routing rule (``ops/fir.py`` impl='auto' with
+    ``RADIOCORE_TPU_FIR_IMPL=pallas``): long real float32 signals with
+    host NumPy taps go to the kernel, on CUDA."""
     return (x.is_cuda and x.dtype == torch.float32
             and x.shape[-1] >= KERNEL_MIN_LEN
             and isinstance(taps, np.ndarray))
 
 
-def fir_route(x: torch.Tensor, taps, impl: str = "auto") -> str:
-    """The slot ``fir_causal(x, taps, impl=impl)`` takes: ``'kernel'``
-    (K-FIR; its plain version for a CPU tensor), ``'plain'`` or ``'fft'``
-    (:func:`fir_overlap_save`). The kernel takes real float32 signals and
-    at most ``kernels.fir.MAX_TAPS`` taps: longer tap sets go to
-    overlap-save, other dtypes to the plain version."""
+def _auto_slot(x: torch.Tensor, taps, fir_impl: str) -> str:
+    """``impl='auto'`` under ``routes.fir_impl``, by the reference's rule:
+    ``pallas`` is the kernel where :func:`_use_kernel` allows it, ``fft``
+    overlap-save from :data:`KERNEL_MIN_LEN` samples, and each is the
+    plain version otherwise, as ``conv`` always is."""
+    if fir_impl == "pallas" and _use_kernel(x, taps):
+        return "kernel"
+    if fir_impl == "fft" and x.shape[-1] >= KERNEL_MIN_LEN:
+        return "fft"
+    return "plain"
+
+
+def fir_route(x: torch.Tensor, taps, impl: str = "auto",
+              routes: Optional[Routes] = None) -> str:
+    """The slot ``fir_causal(x, taps, impl=impl, routes=routes)`` takes:
+    ``'kernel'`` (K-FIR; its plain version for a CPU tensor), ``'plain'``
+    or ``'fft'`` (:func:`fir_overlap_save`). The kernel takes real float32
+    signals and at most ``kernels.fir.MAX_TAPS`` taps: longer tap sets go
+    to overlap-save, other dtypes to the plain version."""
     try:
         slot = _IMPL[impl]
     except KeyError:
         raise ValueError(f"impl={impl!r}: expected one of "
                          f"{sorted(_IMPL)}") from None
     if slot == "auto":
-        slot = "kernel" if _use_kernel(x, taps) else "plain"
+        slot = _auto_slot(x, taps, resolve(routes).fir_impl)
     if slot == "kernel":
         if x.dtype != torch.float32:
             return "plain"
@@ -58,20 +73,22 @@ def fir_route(x: torch.Tensor, taps, impl: str = "auto") -> str:
 
 def fir_causal(x: torch.Tensor, taps,
                history: Optional[torch.Tensor] = None,
-               impl: str = "auto") -> torch.Tensor:
+               impl: str = "auto",
+               routes: Optional[Routes] = None) -> torch.Tensor:
     """Causal FIR ``y[n] = Σ_k b[k]·x[n−k]`` with explicit input history
     (the ``num_taps−1`` samples before ``x``; zeros by default — as
     ``scipy.signal.lfilter(b, 1, x)``).
 
     ``impl``: ``'kernel'`` (K-FIR on a CUDA tensor, its plain version on
     the CPU), ``'plain'`` (shift-and-add in ``x``'s dtype), ``'fft'``
-    (overlap-save) or ``'auto'``: the kernel for long real float32 CUDA
-    signals with host NumPy taps, the plain version otherwise. See
-    :func:`fir_route`.
+    (overlap-save) or ``'auto'``: ``routes.fir_impl`` decides, by the
+    reference's rule; under the default (``pallas``) the kernel for long
+    real float32 CUDA signals with host NumPy taps, the plain version
+    otherwise. See :func:`fir_route`.
     """
-    slot = fir_route(x, taps, impl)
+    slot = fir_route(x, taps, impl, routes)
     if slot == "fft":
-        return fir_overlap_save(x, taps, history=history)
+        return fir_overlap_save(x, taps, history=history, routes=routes)
     if slot == "kernel":
         if history is not None and history.dtype != torch.float32:
             history = history.to(torch.float32)
@@ -79,12 +96,13 @@ def fir_causal(x: torch.Tensor, taps,
     return kfir.fir_causal_plain(x, taps, history)
 
 
-def fir_stream(x: torch.Tensor, taps,
-               history: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def fir_stream(x: torch.Tensor, taps, history: torch.Tensor,
+               routes: Optional[Routes] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming causal FIR: returns ``(y, new_history)``, the carried
     state being the raw trailing input samples (``lfilter`` with ``zi``)."""
     t = int(np.shape(taps)[0])
-    y = fir_causal(x, taps, history=history)
+    y = fir_causal(x, taps, history=history, routes=routes)
     if t - 1 <= x.shape[-1]:
         new_history = x[..., x.shape[-1] - (t - 1):]
     else:
@@ -95,7 +113,8 @@ def fir_stream(x: torch.Tensor, taps,
 
 def fir_overlap_save(x: torch.Tensor, taps,
                      history: Optional[torch.Tensor] = None,
-                     block: int = 1 << 15) -> torch.Tensor:
+                     block: int = 1 << 15,
+                     routes: Optional[Routes] = None) -> torch.Tensor:
     """Causal FIR via FFT overlap-save: the output of :func:`fir_causal`
     at a cost independent of the tap count. Blocks of ``block`` samples
     are filtered with an FFT of ``2^k ≥ block + T − 1`` points against a
@@ -133,18 +152,20 @@ def fir_overlap_save(x: torch.Tensor, taps,
     if x.is_complex():
         hs = torch.from_numpy(np.fft.fft(taps_np, nfft)).to(
             device=x.device, dtype=cdtype)
-        y = _fft.ifft(_fft.fft(segs) * hs).to(x.dtype)
+        y = _fft.ifft(_fft.fft(segs, routes) * hs, routes).to(x.dtype)
     else:
         hs = torch.from_numpy(np.fft.rfft(taps_np, nfft)).to(
             device=x.device, dtype=cdtype)
-        y = _fft.irfft(_fft.rfft(segs) * hs, n=nfft).to(x.dtype)
+        y = _fft.irfft(_fft.rfft(segs, routes) * hs, nfft,
+                       routes).to(x.dtype)
     # Valid region of each block: samples t-1 .. t-1+block-1.
     y = y[..., t - 1:t - 1 + block]
     return y.reshape(x.shape[:-1] + (n_blocks * block,))[..., :n]
 
 
 def zero_phase_fir(x: torch.Tensor, taps,
-                   padlen: Optional[int] = None) -> torch.Tensor:
+                   padlen: Optional[int] = None,
+                   routes: Optional[Routes] = None) -> torch.Tensor:
     """Zero-phase FIR (forward-backward), matching
     ``scipy.signal.filtfilt``: odd extension by ``3·num_taps`` samples and
     steady-state initial conditions seeded from the first extended sample
@@ -165,9 +186,11 @@ def zero_phase_fir(x: torch.Tensor, taps,
     # The histories are real copies (``repeat``, not ``expand``): K-FIR
     # reads them with unit stride.
     reps = (1,) * (x.dim() - 1) + (t - 1,)
-    fwd = fir_causal(ext, taps, history=ext[..., :1].repeat(reps))
+    fwd = fir_causal(ext, taps, history=ext[..., :1].repeat(reps),
+                     routes=routes)
     rev = torch.flip(fwd, dims=(-1,))
-    bwd = fir_causal(rev, taps, history=rev[..., :1].repeat(reps))
+    bwd = fir_causal(rev, taps, history=rev[..., :1].repeat(reps),
+                     routes=routes)
     # The extension is symmetric, so the kept span is the same indices of
     # the reversed output, flipped back.
     return torch.flip(bwd[..., padlen:padlen + n], dims=(-1,))

@@ -23,6 +23,7 @@ import torch
 from scipy import signal as _sig
 
 from radiocore_tpu_torch.ops import fft as _fft
+from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.platform import resolve_device
 
 
@@ -59,7 +60,8 @@ def _branch_conv(z: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
 
 
 def pfb_channelize(x: torch.Tensor, taps: np.ndarray, n_channels: int,
-                   history: Optional[torch.Tensor] = None
+                   history: Optional[torch.Tensor] = None,
+                   routes: Optional[Routes] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Channelize ``x`` (..., N) into ``(..., N/M, M)`` plus the new
     history.
@@ -93,4 +95,4 @@ def pfb_channelize(x: torch.Tensor, taps: np.ndarray, n_channels: int,
 
     # M-point DFT over the branch axis picks the channel centres k·fs/M
     # (unit passband gain: the taps are normalised to Σh = 1).
-    return _fft.fft(y), new_history
+    return _fft.fft(y, routes), new_history

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from radiocore_tpu_torch.ops import fft as _fft
+from radiocore_tpu_torch.runtime.routes import Routes
 
 
 def _fold_window_onesided(win: np.ndarray, n_rfft: int) -> np.ndarray:
@@ -49,12 +50,12 @@ def real_resample_weights(n_x: int, num: int,
     return w
 
 
-def resample_real(x: torch.Tensor, num: int,
-                  weights: torch.Tensor) -> torch.Tensor:
+def resample_real(x: torch.Tensor, num: int, weights: torch.Tensor,
+                  routes: Optional[Routes] = None) -> torch.Tensor:
     """The real path of :func:`resample_fft` with its weights
     (:func:`real_resample_weights`) already on ``x``'s device."""
-    X = _fft.rfft(x)[..., :weights.shape[-1]]
-    return _fft.irfft(X * weights, n=int(num))
+    X = _fft.rfft(x, routes)[..., :weights.shape[-1]]
+    return _fft.irfft(X * weights, int(num), routes)
 
 
 def _on(w: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -64,25 +65,27 @@ def _on(w: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 def resample_fft(x: torch.Tensor, num: int,
-                 window: Optional[np.ndarray] = None) -> torch.Tensor:
+                 window: Optional[np.ndarray] = None,
+                 routes: Optional[Routes] = None) -> torch.Tensor:
     """Resample ``x`` to ``num`` samples along the last axis.
 
     Matches ``scipy.signal.resample(x, num, window=window, axis=-1)`` for
     real and complex inputs. ``window``, if given, is a length-``n`` host
     NumPy array applied to the unshifted spectrum. Any leading batch
-    dimensions.
+    dimensions. ``routes`` routes its transforms (``ops/fft``).
     """
     if x.is_complex():
-        X = _fft.fft(x)
+        X = _fft.fft(x, routes)
         if window is not None:
             X = X * _on(np.asarray(window), X)
-        return resample_spectrum(X, num)
+        return resample_spectrum(X, num, routes)
     # Real path: one-sided FFT with folded window (scipy's rfft branch).
     return resample_real(x, num, _on(
-        real_resample_weights(x.shape[-1], num, window), x))
+        real_resample_weights(x.shape[-1], num, window), x), routes)
 
 
-def resample_spectrum(X: torch.Tensor, num: int) -> torch.Tensor:
+def resample_spectrum(X: torch.Tensor, num: int,
+                      routes: Optional[Routes] = None) -> torch.Tensor:
     """Resample from an already computed two-sided spectrum (scipy's
     ``domain='freq'``): one full-band FFT shared by all channels, each
     taking its slice here. ``X`` is left untouched."""
@@ -113,4 +116,4 @@ def resample_spectrum(X: torch.Tensor, num: int) -> torch.Tensor:
             mid = X.new_zeros(X.shape[:-1] + (num - m,))
             Y = torch.cat([pos, mid, neg], dim=-1)
 
-    return _fft.ifft(Y / s_fac)
+    return _fft.ifft(Y / s_fac, routes)

@@ -21,6 +21,7 @@ from radiocore_tpu_torch.ops.consts import HostConst
 from radiocore_tpu_torch.parallel.collectives import Axis, ppermute
 from radiocore_tpu_torch.parallel.fft_sharded import (_fourstep_local_blocks,
                                                       split_for_shards)
+from radiocore_tpu_torch.runtime.routes import Routes
 
 
 def roll_sharded(block: torch.Tensor, shift: int, n: int,
@@ -44,7 +45,8 @@ def roll_sharded(block: torch.Tensor, shift: int, n: int,
 
 
 def make_extract_body(n_band: int, shifts: Sequence[int], bandwidth: int,
-                      n_devices: int, axis: Axis
+                      n_devices: int, axis: Axis,
+                      routes: Optional[Routes] = None
                       ) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
     """Per-rank ``band block (n/D,) → channels (C/D, m)`` body, or None.
 
@@ -74,7 +76,8 @@ def make_extract_body(n_band: int, shifts: Sequence[int], bandwidth: int,
     fix = float(w_fix) if w_fix is not None else None
 
     def body(block: torch.Tensor) -> torch.Tensor:
-        spec = _fourstep_local_blocks(block, n1, n2, axis)   # my k block
+        spec = _fourstep_local_blocks(block, n1, n2, axis,
+                                      routes)               # my k block
         rolled = roll_sharded(spec, a0, n, axis)
         # One halo bin: the right neighbour's first rolled bin (wraps).
         halo = ppermute(rolled[:1], [(e, (e - 1) % d) for e in range(d)],
@@ -90,6 +93,6 @@ def make_extract_body(n_band: int, shifts: Sequence[int], bandwidth: int,
         else:
             pos = torch.cat([rows[:, neg:], nxt], dim=-1)[:, :m2]
             y = torch.cat([pos, rows[:, :neg]], dim=-1) * w
-        return _fft.ifft(y / s_fac)                          # (c_loc, m)
+        return _fft.ifft(y / s_fac, routes)                  # (c_loc, m)
 
     return body

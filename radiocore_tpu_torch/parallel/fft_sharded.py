@@ -19,6 +19,7 @@ rank's local FFTs go through the port's ``ops/fft``.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,13 +28,15 @@ from radiocore_tpu_torch.ops import fft as _fft
 from radiocore_tpu_torch.parallel.collectives import (Axis, all_gather,
                                                       all_to_all)
 from radiocore_tpu_torch.parallel.mesh import TIME, AxisName, RadioMesh
+from radiocore_tpu_torch.runtime.routes import Routes
 
 
-def fft_sharded_auto(x: torch.Tensor, mesh: RadioMesh) -> torch.Tensor:
+def fft_sharded_auto(x: torch.Tensor, mesh: RadioMesh,
+                     routes: Optional[Routes] = None) -> torch.Tensor:
     """Band FFT of the blocks sharded over the ``time`` axis: all-gather,
     then one FFT of the whole band, the same on every rank."""
     parts = all_gather(x, mesh.axis(TIME))
-    return _fft.fft(parts.reshape(-1))
+    return _fft.fft(parts.reshape(-1), routes)
 
 
 @functools.lru_cache(maxsize=8)
@@ -52,7 +55,8 @@ def _twiddle(n1: int, n2: int, shards: int, me: int,
 
 
 def _fourstep_local(x_block: torch.Tensor, n1: int, n2: int,
-                    axis: Axis) -> torch.Tensor:
+                    axis: Axis, routes: Optional[Routes] = None
+                    ) -> torch.Tensor:
     """Per-rank body: ``x_block`` is (n1/D, n2) rows (i-major) of the
     band; returns (n1/D, n2), ``Z[k1_local, k2]``.
 
@@ -67,21 +71,23 @@ def _fourstep_local(x_block: torch.Tensor, n1: int, n2: int,
     # column slab.
     z = all_to_all(x_block.reshape(rows, shards, cols), 1, 0, axis)
     z = z.reshape(n1, cols)                     # i = q·rows + r
-    y = _fft.fft(z.transpose(0, 1).contiguous())   # (cols, n1): Y[j, k1]
+    y = _fft.fft(z.transpose(0, 1).contiguous(),
+                 routes)                        # (cols, n1): Y[j, k1]
     y = y * _twiddle(n1, n2, shards, axis.index, y.device)
     # Back so that j is local per k1 block: (cols, n1) → (rows, n2) with
     # k1 = me·rows + r, j = q·cols + c.
     y = all_to_all(y.reshape(cols, shards, rows), 1, 0, axis)
     y = y.reshape(n2, rows).transpose(0, 1).contiguous()
-    return _fft.fft(y)                          # Z[k1_local, k2]
+    return _fft.fft(y, routes)                  # Z[k1_local, k2]
 
 
 def _fourstep_local_blocks(x_block: torch.Tensor, n1: int, n2: int,
-                           axis: Axis) -> torch.Tensor:
+                           axis: Axis, routes: Optional[Routes] = None
+                           ) -> torch.Tensor:
     """Per-rank body: a contiguous sample block → the contiguous spectrum
     block ``X[d·n/D : (d+1)·n/D]`` (the six-step FFT's final transpose,
     one more all-to-all): no rank holds the whole band or spectrum."""
-    z = _fourstep_local(x_block.reshape(-1, n2), n1, n2, axis)
+    z = _fourstep_local(x_block.reshape(-1, n2), n1, n2, axis, routes)
     shards = axis.size
     rows = n1 // shards
     cols2 = n2 // shards
@@ -108,7 +114,8 @@ def split_for_shards(n: int, shards: int):
 
 
 def fft_sharded_blocks(x: torch.Tensor, mesh: RadioMesh,
-                       axis_name: AxisName = TIME) -> torch.Tensor:
+                       axis_name: AxisName = TIME,
+                       routes: Optional[Routes] = None) -> torch.Tensor:
     """Distributed standard-order FFT: this rank's contiguous block of
     the band in, its contiguous block of the spectrum out."""
     axis = mesh.axis(axis_name)
@@ -118,11 +125,12 @@ def fft_sharded_blocks(x: torch.Tensor, mesh: RadioMesh,
     if split is None:
         raise ValueError(
             f"no n1·n2 = {n} split with both factors divisible by {shards}")
-    return _fourstep_local_blocks(x, *split, axis)
+    return _fourstep_local_blocks(x, *split, axis, routes)
 
 
 def fft_sharded_fourstep(x: torch.Tensor, mesh: RadioMesh, n1: int,
-                         axis_name: AxisName = TIME) -> torch.Tensor:
+                         axis_name: AxisName = TIME,
+                         routes: Optional[Routes] = None) -> torch.Tensor:
     """Explicit distributed FFT: this rank's block of the band (rows of
     the (n1, n2) matrix) in, its rows of X in (k1, k2) matrix layout out;
     the whole matrix flattens to standard order as ``X.T.reshape(-1)``
@@ -135,4 +143,5 @@ def fft_sharded_fourstep(x: torch.Tensor, mesh: RadioMesh, n1: int,
     n2 = n // n1
     if n1 % shards or n2 % shards:
         raise ValueError("n1 and n2 must divide by the shard count")
-    return _fourstep_local(x.reshape(n1 // shards, n2), n1, n2, axis)
+    return _fourstep_local(x.reshape(n1 // shards, n2), n1, n2, axis,
+                           routes)

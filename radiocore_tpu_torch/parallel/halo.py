@@ -25,6 +25,7 @@ from radiocore_tpu_torch.ops.fir import fir_causal, fir_overlap_save
 from radiocore_tpu_torch.ops.pfb import pfb_channelize
 from radiocore_tpu_torch.parallel.collectives import Axis, ppermute, psum
 from radiocore_tpu_torch.parallel.mesh import TIME, AxisName, RadioMesh
+from radiocore_tpu_torch.runtime.routes import Routes
 
 
 def _shift_right(block_tail: torch.Tensor, axis: Axis) -> torch.Tensor:
@@ -57,17 +58,19 @@ def halo_exchange(x: torch.Tensor, n_left: int, n_right: int,
     return torch.cat(parts, dim=-1)
 
 
-def fir_causal_halo(x: torch.Tensor, taps, axis: Axis) -> torch.Tensor:
+def fir_causal_halo(x: torch.Tensor, taps, axis: Axis,
+                    routes: Optional[Routes] = None) -> torch.Tensor:
     """Causal FIR on a time-sharded block: the port's ``fir_causal`` with
     the left neighbour's tail as history (rank 0: zeros), equal to the
     unsharded ``fir_causal`` with zero history."""
     taps = np.asarray(taps, dtype=np.float64)
     t = len(taps)
     left = _shift_right(_tail(x, t - 1), axis) if t > 1 else None
-    return fir_causal(x, taps, history=left)
+    return fir_causal(x, taps, history=left, routes=routes)
 
 
-def zero_phase_fir_halo(x: torch.Tensor, taps, axis: Axis) -> torch.Tensor:
+def zero_phase_fir_halo(x: torch.Tensor, taps, axis: Axis,
+                        routes: Optional[Routes] = None) -> torch.Tensor:
     """Zero-phase FIR on a time-sharded block: the forward-backward
     filter, a causal sweep with a left halo and an anti-causal one with a
     right halo. The global edges see zero padding, as in the reference
@@ -76,13 +79,15 @@ def zero_phase_fir_halo(x: torch.Tensor, taps, axis: Axis) -> torch.Tensor:
     taps = np.asarray(taps, dtype=np.float64)
     t = len(taps)
     if t == 1:
-        return fir_causal(fir_causal(x, taps), taps)
-    fwd = fir_causal(x, taps, history=_shift_right(_tail(x, t - 1), axis))
+        return fir_causal(fir_causal(x, taps, routes=routes), taps,
+                          routes=routes)
+    fwd = fir_causal(x, taps, history=_shift_right(_tail(x, t - 1), axis),
+                     routes=routes)
     right = _shift_left(fwd[..., :t - 1].contiguous(), axis)
     # The anti-causal sweep is the causal one on the reversed block, with
     # the reversed right halo as its history.
     bwd = fir_causal(torch.flip(fwd, dims=(-1,)), taps,
-                     history=torch.flip(right, dims=(-1,)))
+                     history=torch.flip(right, dims=(-1,)), routes=routes)
     return torch.flip(bwd, dims=(-1,))
 
 
@@ -108,7 +113,8 @@ def _last_shard_tail(x: torch.Tensor, t_hist: int,
 
 def fir_overlap_save_halo(x: torch.Tensor, taps, axis: Axis,
                           stream_history: Optional[torch.Tensor] = None,
-                          block: int = 1 << 15
+                          block: int = 1 << 15,
+                          routes: Optional[Routes] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming overlap-save FIR on a time-sharded block: each rank
     filters its block with its own FFTs, the only collectives being the
@@ -117,12 +123,13 @@ def fir_overlap_save_halo(x: torch.Tensor, taps, axis: Axis,
     whole chunk with ``stream_history``."""
     t = len(np.asarray(taps))
     hist = _history_or_left_halo(x, t - 1, stream_history, axis)
-    y = fir_overlap_save(x, taps, history=hist, block=block)
+    y = fir_overlap_save(x, taps, history=hist, block=block, routes=routes)
     return y, _last_shard_tail(x, t - 1, axis)
 
 
 def pfb_channelize_halo(x: torch.Tensor, taps, n_channels: int, axis: Axis,
-                        stream_history: Optional[torch.Tensor] = None
+                        stream_history: Optional[torch.Tensor] = None,
+                        routes: Optional[Routes] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming PFB channelizer on a time-sharded band: each rank
     channelizes its block with the left neighbour's ``(P−1)·M``-sample
@@ -135,20 +142,22 @@ def pfb_channelize_halo(x: torch.Tensor, taps, n_channels: int, axis: Axis,
     if x.shape[-1] % m:
         raise ValueError("local block must divide by n_channels")
     hist = _history_or_left_halo(x, t_hist, stream_history, axis)
-    channels, _ = pfb_channelize(x, taps, m, history=hist)
+    channels, _ = pfb_channelize(x, taps, m, history=hist, routes=routes)
     return channels, _last_shard_tail(x, t_hist, axis)
 
 
 def fir_causal_sharded(x: torch.Tensor, taps, mesh: RadioMesh,
-                       axis_name: AxisName = TIME) -> torch.Tensor:
+                       axis_name: AxisName = TIME,
+                       routes: Optional[Routes] = None) -> torch.Tensor:
     """:func:`fir_causal_halo` on this rank's block of a signal whose
     last axis is sharded over ``axis_name`` (``mesh.shard`` cuts one
     from the whole signal)."""
-    return fir_causal_halo(x, taps, mesh.axis(axis_name))
+    return fir_causal_halo(x, taps, mesh.axis(axis_name), routes)
 
 
 def zero_phase_fir_sharded(x: torch.Tensor, taps, mesh: RadioMesh,
-                           axis_name: AxisName = TIME) -> torch.Tensor:
+                           axis_name: AxisName = TIME,
+                           routes: Optional[Routes] = None) -> torch.Tensor:
     """:func:`zero_phase_fir_halo` on this rank's block over
     ``axis_name``."""
-    return zero_phase_fir_halo(x, taps, mesh.axis(axis_name))
+    return zero_phase_fir_halo(x, taps, mesh.axis(axis_name), routes)

@@ -16,7 +16,10 @@ station rfft and the fused extract+demod paths of
         (C, audio_chunk, 2)
 
 On a CUDA device every kernel stage runs the hand-written kernel; on
-the CPU the same code runs their plain PyTorch versions.
+the CPU the same code runs their plain PyTorch versions. ``routes``
+(:class:`~radiocore_tpu_torch.runtime.routes.Routes`) can send the band
+FFT, the extraction's inverse, the station rfft, the tail's transforms
+and its FIR elsewhere; the defaults give the diagram above.
 
 With a mesh, each rank takes its contiguous block of the band and
 returns the audio and state of its block of the stations, both dealt
@@ -50,6 +53,7 @@ from radiocore_tpu_torch.parallel.collectives import all_gather
 from radiocore_tpu_torch.parallel.mesh import (FLAT, RadioMesh,
                                                station_sharding)
 from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.routes import Routes, resolve
 
 State = Dict[str, torch.Tensor]
 
@@ -65,6 +69,7 @@ def make_multi_station_step(
         *,
         device: Optional[torch.device | str] = None,
         mesh: Optional[RadioMesh] = None,
+        routes: Optional[Routes] = None,
 ) -> Tuple[Callable[[torch.Tensor, State], Tuple[torch.Tensor, State]],
            State]:
     """Build ``step(band_iq, state) -> (audio, state)`` plus the initial
@@ -106,6 +111,16 @@ def make_multi_station_step(
     otherwise the band is gathered and each rank extracts its own
     stations. Either way each rank demodulates its stations as one
     device does. ``step.stages`` is ``front_end`` and ``demod_tail``.
+
+    ``routes`` (None: the defaults) goes to the band FFT, the extractor
+    (``extract_ifft``), the tail (``env_fft``, ``fir_impl``, its
+    transforms) and the mesh path. ``routes.station_rfft`` picks the
+    station rfft of the ``fast`` step, as the reference's
+    ``RADIOCORE_TPU_STATION_RFFT``: ``"auto"`` is K-FFT's ``rfft_pow2`` on
+    the card and ``ops.fft.rfft`` on the CPU, ``"pallas"`` is
+    ``rfft_pow2`` on either (its plain version on the CPU) and
+    ``"native"`` is ``ops.fft.rfft``; ``rfft_pow2`` only where half the
+    station chunk is a K-FFT row.
     """
     if mode not in ("exact", "fast"):
         raise ValueError(f"unknown mode {mode!r}; 'exact' or 'fast'")
@@ -125,6 +140,7 @@ def make_multi_station_step(
                              f"{mesh.device}")
         device = mesh.device
     device = resolve_device(device)
+    routes = resolve(routes)
     n_stations = len(offsets_hz)
     n_band = int(n_band)
     sc = int(station_chunk)
@@ -142,16 +158,21 @@ def make_multi_station_step(
                 f"{ok.__name__} accepts)")
     tail = make_wbfm_step(
         sc, audio_chunk, deemphasis,
-        mode="exact" if mode == "exact" else "fast_spec")
+        mode="exact" if mode == "exact" else "fast_spec", routes=routes)
     h = sc // 2
     kernel_rfft = ((sc & (sc - 1)) == 0
                    and fft_rows.MIN_ROW <= h <= fft_rows.MAX_ROW)
 
     def band_fft(band_iq: torch.Tensor) -> torch.Tensor:
-        return _fft.fft(band_iq)
+        return _fft.fft(band_iq, routes)
 
     def station_rfft(quad: torch.Tensor) -> torch.Tensor:
-        return fft_rows.rfft_pow2(quad) if kernel_rfft else _fft.rfft(quad)
+        impl = routes.station_rfft
+        if impl == "auto":
+            impl = "pallas" if quad.is_cuda else "native"
+        if impl == "pallas" and kernel_rfft:
+            return fft_rows.rfft_pow2(quad)
+        return _fft.rfft(quad, routes)
 
     if mode == "exact":
         demod_tail = tail   # batch-generic: the stations ride along
@@ -162,10 +183,10 @@ def make_multi_station_step(
 
     if mesh is not None:
         return _mesh_step(mesh, n_band, shifts, sc, audio_chunk, deemphasis,
-                          demod_tail)
+                          demod_tail, routes)
 
     if extract_demod == "off":
-        extract = make_extractor(n_band, shifts, sc)
+        extract = make_extractor(n_band, shifts, sc, routes)
 
         def extract_stations(spectrum: torch.Tensor) -> torch.Tensor:
             return extract(spectrum).to(torch.complex64)
@@ -209,7 +230,8 @@ def make_multi_station_step(
 def _mesh_step(mesh: RadioMesh, n_band: int, shifts: Tuple[int, ...],
                sc: int, audio_chunk: int, deemphasis: float,
                demod_tail: Callable[[torch.Tensor, State],
-                                    Tuple[torch.Tensor, State]]):
+                                    Tuple[torch.Tensor, State]],
+               routes: Routes):
     """This rank's step over the flat (row-major) axis of ``mesh``."""
     axis = mesh.axis(FLAT)
     d = axis.size
@@ -219,16 +241,16 @@ def _mesh_step(mesh: RadioMesh, n_band: int, shifts: Tuple[int, ...],
         raise ValueError(f"{len(shifts)} stations for {d} ranks: every "
                          f"rank needs one")
     mine = station_sharding(mesh, len(shifts))
-    body = make_extract_body(n_band, shifts, sc, d, axis)
+    body = make_extract_body(n_band, shifts, sc, d, axis, routes)
     if body is not None:
         def front_end(block: torch.Tensor) -> torch.Tensor:
             return body(block).to(torch.complex64)
     else:
-        extract = make_extractor(n_band, shifts[mine], sc)
+        extract = make_extractor(n_band, shifts[mine], sc, routes)
 
         def front_end(block: torch.Tensor) -> torch.Tensor:
             band = all_gather(block, axis).reshape(-1)
-            return extract(_fft.fft(band)).to(torch.complex64)
+            return extract(_fft.fft(band, routes)).to(torch.complex64)
 
     def step(band_block: torch.Tensor, state: State
              ) -> Tuple[torch.Tensor, State]:

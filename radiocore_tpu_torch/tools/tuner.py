@@ -30,6 +30,7 @@ from radiocore_tpu_torch.ops import fft as _fft
 from radiocore_tpu_torch.ops.channelize import make_extractor
 from radiocore_tpu_torch.ops.resample import resample_spectrum
 from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import to_device_c64
 
 
@@ -55,12 +56,16 @@ class Channel:
 
 class Tuner:
     """Runs on ``device`` (the first CUDA device when None); ``cuda`` is
-    kept for the reference's signature."""
+    kept for the reference's signature. ``routes`` (None: the defaults)
+    routes the band FFT and the extraction (``ops/fft``,
+    ``ops/channelize``)."""
 
     def __init__(self, cuda: bool = False, *,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 routes: Optional[Routes] = None):
         del cuda
         self._device = resolve_device(device)
+        self._routes = routes
         self._channels: List[Channel] = []
         self._input_frequency: float = 0.0
         self._input_bandwidth: float = 0.0
@@ -137,7 +142,8 @@ class Tuner:
     def load(self, input_signal) -> None:
         """FFT the full-band 1-second chunk (reference: tuner.py:126-138).
         A tensor already on the device as complex64 is not copied."""
-        self._spectrum = _fft.fft(to_device_c64(input_signal, self._device))
+        self._spectrum = _fft.fft(to_device_c64(input_signal, self._device),
+                                  self._routes)
 
     def _window(self, n: int) -> torch.Tensor:
         key = (n, self._device)
@@ -159,7 +165,8 @@ class Tuner:
         ch = self._channels[int(channel_index)]
         n = self._spectrum.shape[-1]
         rolled = torch.roll(self._spectrum, self._shift(ch))
-        return resample_spectrum(rolled * self._window(n), int(ch.bandwidth))
+        return resample_spectrum(rolled * self._window(n), int(ch.bandwidth),
+                                 self._routes)
 
     def run_all(self) -> torch.Tensor:
         """Extract ALL channels at once → ``(n_channels, bandwidth)`` c64.
@@ -175,5 +182,5 @@ class Tuner:
                              "use run(i) for heterogeneous plans")
         n = int(self._spectrum.shape[-1])
         shifts = tuple(self._shift(ch) for ch in self._channels)
-        extract = make_extractor(n, shifts, bws.pop())
+        extract = make_extractor(n, shifts, bws.pop(), self._routes)
         return extract(self._spectrum).to(torch.complex64)

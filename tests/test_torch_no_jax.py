@@ -1,6 +1,8 @@
-"""The port never imports JAX, not even transitively, and its platform
-probe answers without a card."""
+"""The port never imports JAX, not even transitively, its platform
+probe answers without a card, and only its routes module and its apps
+read the routing variables."""
 
+import ast
 import pkgutil
 import subprocess
 import sys
@@ -59,7 +61,8 @@ def test_every_module_imports_without_jax():
             "radiocore_tpu_torch.parallel.channelize_sharded",
             "radiocore_tpu_torch.parallel.comm_analysis",
             "radiocore_tpu_torch.parallel.dryrun",
-            "radiocore_tpu_torch.runtime.platform"} <= set(mods)
+            "radiocore_tpu_torch.runtime.platform",
+            "radiocore_tpu_torch.runtime.routes"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -129,3 +132,51 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
                                               device="cpu")
         audio, _ = step(band, state)
         assert tuple(audio.shape) == (c, 16_384, 2)
+
+
+def _environ_reads(tree):
+    """``RADIOCORE_TPU_*`` names read from the environment in a module:
+    ``os.environ.get(name)``, ``os.getenv(name)``, ``os.environ[name]``
+    and ``name in os.environ``."""
+    def is_environ(node):
+        return (isinstance(node, ast.Attribute) and node.attr == "environ"
+                or isinstance(node, ast.Name) and node.id == "environ")
+
+    def name_of(node):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            return node.value
+        return None
+
+    found = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Call) and node.args:
+            f = node.func
+            if (isinstance(f, ast.Attribute)
+                    and (f.attr in ("get", "pop", "setdefault")
+                         and is_environ(f.value) or f.attr == "getenv")):
+                names.append(name_of(node.args[0]))
+        elif isinstance(node, ast.Subscript) and is_environ(node.value):
+            names.append(name_of(node.slice))
+        elif (isinstance(node, ast.Compare) and len(node.ops) == 1
+              and isinstance(node.ops[0], (ast.In, ast.NotIn))
+              and is_environ(node.comparators[0])):
+            names.append(name_of(node.left))
+        found += [n for n in names if n and n.startswith("RADIOCORE_TPU_")]
+    return found
+
+
+def test_only_routes_and_apps_read_routing_variables():
+    pkg = Path(radiocore_tpu_torch.__path__[0])
+    allowed = {pkg / "runtime" / "routes.py"}
+    readers = {}
+    for path in sorted(pkg.rglob("*.py")):
+        found = _environ_reads(ast.parse(path.read_text()))
+        if found:
+            readers[str(path.relative_to(pkg))] = found
+        if path in allowed or (pkg / "apps") in path.parents:
+            continue
+        assert not found, f"{path.relative_to(pkg)} reads {found}"
+    # The check sees the reads that are allowed.
+    assert readers == {"apps/multi_fm_server.py":
+                       ["RADIOCORE_TPU_EXTRACT_DEMOD"]}, readers
