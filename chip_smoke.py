@@ -95,7 +95,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     the distributed front end (gathered audio against the one-process
     step on the card, the front end's station IQ against complex128,
     each rank's launches, collective bytes and times, step wall times),
-    the all-gather branch at 62 stations, the config-4 form (a 129-tap
+    the all-gather branch at 62 stations, the config-5 plan (128 x 50 000
+    in ``exact`` and ``fast``, against the one-process step, the tones of
+    stations 0, 64 and 127), the config-4 form (a 129-tap
     halo overlap-save FIR and the distributed extraction of 64 channels),
     ``fir_causal_sharded`` at 51 taps over 2^24 against K-FIR, and
     ``pfb_channelize_halo`` (64 channels, P = 8) over two chunks against
@@ -118,6 +120,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     K-FFT entry's ``launches`` is the count of the first run that made
     any (``launches_run``: the main path for ``rfft_pow2``), beside every
     run's own count (``launches_by_run``).
+17. (run after 14) runs the port's acceptance drive,
+    ``radiocore_tpu_torch.tools.acceptance``, with every config on the
+    card (``[acceptance]``): BASELINE.md's acceptance configs 1-4 and the
+    fidelity configs 1-3 against the float64 oracle chain of
+    ``tests/oracles.py``, each check with the launches of the kernels its
+    path must go through; a FAIL fails the run.
+18. drives the config-5 rehearsal of ``tests/test_config5.py`` in one
+    process (``[config5]``): ``make_multi_station_step`` at 128 x 50 000
+    -> 10 000 (a 6.4 M band of ``SyntheticFmSource`` stations) in
+    ``exact`` and ``fast``, on the plain extraction and cuFFT (launches:
+    K-FIR twice a step for the exact pilot filter, no other kernel; the
+    de-emphasis of 10 000 samples is below K-FIR's minimum length), the
+    card against the port on the CPU (1e-4),
+    the tones of stations 0, 64 and 127 (> 6 dB), the step time.
 
 The build fails the run if ``ptxas`` reports register spills for the
 demod pass of K-XDEMOD(-SPEC), for K-FIR's kernel or for K-NCO's.
@@ -2143,6 +2159,94 @@ def check_synth(device) -> None:
 
 
 
+# Phase 18, [config5]: the config-5 rehearsal of tests/test_config5.py,
+# 128 stations of 50 000 S/s to 10 000 audio samples in a 6.4 M band of
+# SyntheticFmSource stations. 50 000 is not a power of two: the plain
+# extraction and cuFFT serve the plan. K-FIR takes the exact mode's pilot
+# filter (forward and backward); the de-emphasis of 10 000 samples is
+# below K-FIR's 16 384-sample minimum (the reference's rule), so it runs
+# its plain version, and the fast mode launches no kernel.
+C5_STATIONS, C5_STATION, C5_AUDIO = 128, 50_000, 10_000
+C5_BAND = C5_STATIONS * C5_STATION
+C5_SLOTS = (0, 64, 127)
+C5_TONE_MIN_DB = 6.0          # tests/test_config5.py:69-75
+C5_FIR_PER_STEP = {"exact": 2, "fast": 0}
+C5_ROUTE = ("50 000 is not a power of two: the plain extraction and "
+            "cuFFT; K-FIR for the exact pilot filter, the 10 000-sample "
+            "de-emphasis below K-FIR's minimum length")
+
+
+def config5_band():
+    """The config-5 band (host complex64), its offsets and its tones."""
+    from radiocore_tpu_torch.apps.iq import SyntheticFmSource
+    offs = offsets(C5_STATIONS, C5_STATION)
+    tones = [(300.0 + (i % 40) * 90.0, 800.0 + (i % 40) * 90.0)
+             for i in range(C5_STATIONS)]
+    band = SyntheticFmSource(C5_BAND, offs, C5_STATION,
+                             tones=tones).read_chunk(1.0)
+    return band, offs, tones
+
+
+def config5_tones(audio, tones) -> dict:
+    """Both tones' SNR of stations ``C5_SLOTS`` in host audio; raise
+    below the bound."""
+    from oracles import tone_snr_db
+    snr = {i: tuple(tone_snr_db(audio[i, 500:-500, ch], C5_AUDIO,
+                                tones[i][ch]) for ch in (0, 1))
+           for i in C5_SLOTS}
+    if not min(min(v) for v in snr.values()) > C5_TONE_MIN_DB:
+        raise AssertionError(f"config 5: tone SNR {snr} below "
+                             f"{C5_TONE_MIN_DB} dB")
+    return snr
+
+
+def check_config5(device, card: str) -> None:
+    """The config-5 plan in one process on the card, ``exact`` and
+    ``fast``: launches (``C5_FIR_PER_STEP`` K-FIR, no other kernel), audio
+    against the port on the CPU, the tones of three stations, the step
+    time."""
+    import torch
+    from radiocore_tpu_torch.kernels import extract, fft_mixed, fft_rows, fir
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    band_np, offs, tones = config5_band()
+    band = torch.from_numpy(band_np).to(device)
+    counters = {"K-FFT": fft_rows.launches, "K-MIXED": fft_mixed.launches,
+                "K-EXTRACT": extract.launches, "K-FIR": fir.launches}
+    for mode, fir_per_step in C5_FIR_PER_STEP.items():
+        step, state = make_multi_station_step(
+            C5_BAND, offs, C5_STATION, C5_AUDIO, mode=mode, device=device)
+        torch.cuda.synchronize()
+        for counter in counters.values():
+            counter.reset()
+        audio, _ = step(band, state)
+        torch.cuda.synchronize()
+        launches = {k: c.count for k, c in counters.items()}
+        if tuple(audio.shape) != (C5_STATIONS, C5_AUDIO, 2) or not bool(
+                torch.isfinite(audio).all()):
+            raise AssertionError(f"config 5 {mode}: audio "
+                                 f"{tuple(audio.shape)} not finite")
+        step_cpu, state_cpu = make_multi_station_step(
+            C5_BAND, offs, C5_STATION, C5_AUDIO, mode=mode, device="cpu")
+        want, _ = step_cpu(torch.from_numpy(band_np), state_cpu)
+        err = max_abs(audio.cpu(), want)
+        snr = config5_tones(audio.cpu().numpy(), tones)
+        print(f"[config5] {mode} {C5_STATIONS} x {C5_STATION} -> "
+              f"{C5_AUDIO} in a {C5_BAND} band ({C5_ROUTE}): launches "
+              f"{launches}; card vs CPU max_abs {err:.3e} (bound "
+              f"{E2E_ABS_MAX:.0e}); tones "
+              + ", ".join(f"station {i} {l:.1f} / {r:.1f} dB"
+                          for i, (l, r) in snr.items())
+              + f" (bound {C5_TONE_MIN_DB:.0f} dB); "
+              f"{step_ms(step, band, state)}; {card}")
+        if launches != {"K-FFT": 0, "K-MIXED": 0, "K-EXTRACT": 0,
+                        "K-FIR": fir_per_step}:
+            raise AssertionError(f"config 5 {mode}: launches {launches}")
+        if not err <= E2E_ABS_MAX:
+            raise AssertionError(f"config 5 {mode}: card and CPU audio "
+                                 f"differ by {err}")
+        del step, state, audio, want
+
+
 # Phase 15, [parallel]: a world of two ranks on one card over gloo (NCCL
 # refuses two ranks on one device). It proves that the sharded
 # algorithms compute the right thing with the card's kernels inside them;
@@ -2232,9 +2336,10 @@ def parallel_rank(rank: int, label: str) -> None:
             walls.append(ms)
         return audios, walls, {k: v.count for k, v in counters.items()}
 
-    def against_one_process(what, mode, offs_, chunks, audios):
+    def against_one_process(what, mode, offs_, chunks, audios,
+                            plan=(n, sc, AUDIO)):
         ref_step, ref_state = make_multi_station_step(
-            n, offs_, sc, AUDIO, mode=mode, device=device)
+            plan[0], offs_, plan[1], plan[2], mode=mode, device=device)
         worst = 0.0
         for band, audio in zip(chunks, audios):
             want, ref_state = ref_step(band, ref_state)
@@ -2298,6 +2403,33 @@ def parallel_rank(rank: int, label: str) -> None:
     against_one_process("all-gather branch", "fast", offs62, bands[:1],
                         audios)
     del step, state, audios
+
+    # Config 5: 128 stations of 50 000 S/s in a 6.4 M band, both modes.
+    band_np, offs5, tones5 = config5_band()
+    band5 = torch.from_numpy(band_np).to(device)
+    mine5 = station_sharding(mesh, C5_STATIONS)
+    plan5 = (C5_BAND, C5_STATION, C5_AUDIO)
+    for mode, fir_per_step in C5_FIR_PER_STEP.items():
+        step, state = make_multi_station_step(
+            C5_BAND, offs5, C5_STATION, C5_AUDIO, mode=mode, mesh=mesh)
+        audios, walls, launches = run_steps(step, state, [band5])
+        gathered = gather_stations(audios[0], mesh).cpu().numpy()
+        snr = config5_tones(gathered, tones5)
+        print(f"{tag} config 5 {mode} {C5_STATIONS} x {C5_STATION} -> "
+              f"{C5_AUDIO} ({C5_ROUTE}), stations "
+              f"{mine5.start}..{mine5.stop - 1}, "
+              f"distributed front end {step.distributed}: launches "
+              f"{launches}; collectives a step: {_par_bytes(mesh)}; step "
+              f"wall {walls[0]:.1f} ms; tones "
+              + ", ".join(f"station {i} {l:.1f} / {r:.1f} dB"
+                          for i, (l, r) in snr.items())
+              + f" ({label})", flush=True)
+        if launches != {"K-FFT": 0, "K-EXTRACT": 0, "K-FIR": fir_per_step}:
+            raise AssertionError(f"config 5 {mode}: launches {launches}")
+        against_one_process(f"config 5 {mode}", mode, offs5, [band5],
+                            audios, plan5)
+        del step, state, audios
+    del band5
 
     # The config-4 form over a time axis of 2.
     axis = tmesh.axis(TIME)
@@ -2578,6 +2710,22 @@ def main(argv=()) -> int:
         runs.update(check_routes(device, gen, smi.splitlines()[0]))
         lap("[routes]")
 
+    def phase_acceptance():
+        # Phase 17: the port's acceptance drive, every config, on the card.
+        from radiocore_tpu_torch.tools import acceptance
+        print(f"[acceptance] tools.acceptance on {smi.splitlines()[0]}",
+              flush=True)
+        rc = acceptance.main(["--configs", "1,2,3,4",
+                              "--fidelity", "1,2,3"])
+        if rc != 0:
+            raise AssertionError(f"[acceptance] FAIL (exit {rc})")
+        lap("[acceptance]")
+
+    def phase_config5():
+        # Phase 18: 128 stations of 50 000 S/s in one process.
+        check_config5(device, smi.splitlines()[0])
+        lap("[config5]")
+
     def phase_parallel():
         # Phase 15: two ranks on this card over gloo.
         from radiocore_tpu_torch.parallel.dryrun import run_world
@@ -2604,7 +2752,8 @@ def main(argv=()) -> int:
     for run_phase in (phase_main, phase_band, phase_dead, phase_paths96,
                       phase_nco, phase_firpilot, phase_exact, phase_ncopath,
                       phase_classes, phase_deadstep, phase_routes,
-                      phase_apps, phase_parallel):
+                      phase_apps, phase_acceptance, phase_config5,
+                      phase_parallel):
         run_phase()
 
     for name in ROUTE_ENTRIES:

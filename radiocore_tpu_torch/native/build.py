@@ -4,10 +4,13 @@ components; counterpart of ``radiocore_tpu/native/build.py``.
 ``ringbuffer.cpp`` and ``iqconvert.cpp`` beside this file are the port's
 own copies of the JAX package's sources. Each is compiled with the
 system C++ compiler at first use, never at import, into
-``radiocore_tpu_torch/_build/native/<hash>/``, keyed by a hash of the
+``radiocore_tpu_torch/_build/native/<hash>/`` in a checkout, or under
+``~/.cache/radiocore_tpu_torch/native/<hash>/`` where the package's
+directory cannot be written (an installed wheel), keyed by a hash of the
 source and the flags, so the two packages never share a library. Where
-no compiler works the loaders return None and every consumer runs its
-pure Python or NumPy version: host code, as in the reference.
+a source is missing or no compiler works the loaders return None and
+every consumer runs its pure Python or NumPy version: host code, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -30,19 +33,37 @@ BUILD_DIR = _HERE.parent / "_build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
-def _lib_path(src: Path, name: str) -> Path:
+def build_dir() -> Path:
+    """:data:`BUILD_DIR` where the package's directory can be written (a
+    checkout), else a per-user cache (an installed wheel)."""
+    if os.access(_HERE.parent, os.W_OK):
+        return BUILD_DIR
+    return Path.home() / ".cache" / "radiocore_tpu_torch" / "native"
+
+
+def _lib_path(src: Path, name: str) -> Optional[Path]:
+    """Where ``src``'s library goes; None when the source is missing."""
+    try:
+        code = src.read_bytes()
+    except FileNotFoundError:
+        return None
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(src.read_bytes())
-    return BUILD_DIR / h.hexdigest()[:16] / name
+    h.update(code)
+    return build_dir() / h.hexdigest()[:16] / name
 
 
 def _compile(src: Path, name: str) -> Optional[Path]:
     """The built library of ``src``, compiled now if it is not there yet;
-    None when no C++ compiler builds it."""
+    None when the source is missing or no C++ compiler builds it."""
     path = _lib_path(src, name)
+    if path is None:
+        return None
     if path.exists():
         return path
-    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        path.parent.mkdir(parents=True, exist_ok=True)
+    except OSError:
+        return None
     for cxx in ("g++", "c++", "clang++"):
         # Build to a temp file, then rename it into place, so that
         # concurrent processes never load a half-written library.

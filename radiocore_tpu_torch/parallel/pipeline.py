@@ -115,12 +115,11 @@ def make_multi_station_step(
     ``routes`` (None: the defaults) goes to the band FFT, the extractor
     (``extract_ifft``), the tail (``env_fft``, ``fir_impl``, its
     transforms) and the mesh path. ``routes.station_rfft`` picks the
-    station rfft of the ``fast`` step, as the reference's
-    ``RADIOCORE_TPU_STATION_RFFT``: ``"auto"`` is K-FFT's ``rfft_pow2`` on
-    the card and ``ops.fft.rfft`` on the CPU, ``"pallas"`` is
-    ``rfft_pow2`` on either (its plain version on the CPU) and
-    ``"native"`` is ``ops.fft.rfft``; ``rfft_pow2`` only where half the
-    station chunk is a K-FFT row.
+    station rfft of the ``fast`` step in the ``off`` and ``fused`` modes
+    (:func:`station_rfft_route`), as the reference's
+    ``RADIOCORE_TPU_STATION_RFFT`` does in ``off``; the reference's
+    ``fused`` path ignores that variable, and ``"native"`` gives its
+    route (``Routes`` says why the default differs).
     """
     if mode not in ("exact", "fast"):
         raise ValueError(f"unknown mode {mode!r}; 'exact' or 'fast'")
@@ -159,19 +158,13 @@ def make_multi_station_step(
     tail = make_wbfm_step(
         sc, audio_chunk, deemphasis,
         mode="exact" if mode == "exact" else "fast_spec", routes=routes)
-    h = sc // 2
-    kernel_rfft = ((sc & (sc - 1)) == 0
-                   and fft_rows.MIN_ROW <= h <= fft_rows.MAX_ROW)
 
     def band_fft(band_iq: torch.Tensor) -> torch.Tensor:
         return _fft.fft(band_iq, routes)
 
     def station_rfft(quad: torch.Tensor) -> torch.Tensor:
-        impl = routes.station_rfft
-        if impl == "auto":
-            impl = "pallas" if quad.is_cuda else "native"
-        if impl == "pallas" and kernel_rfft:
-            return fft_rows.rfft_pow2(quad)
+        if station_rfft_route(sc, quad.is_cuda, routes) == "rows":
+            return fft_rows.rfft_pow2(quad.contiguous())
         return _fft.rfft(quad, routes)
 
     if mode == "exact":
@@ -225,6 +218,26 @@ def make_multi_station_step(
     state0 = wbfm_init_state(audio_chunk, deemphasis,
                              batch_shape=(n_stations,), device=device)
     return step, state0
+
+
+def station_rfft_route(station_chunk: int, is_cuda: bool,
+                       routes: Optional[Routes] = None) -> str:
+    """Where the ``fast`` step's station rfft goes, in the ``off`` and
+    ``fused`` modes: ``"rows"`` (K-FFT's ``rfft_pow2``, its plain version
+    on the CPU) or ``"torch"``. ``routes.station_rfft`` ``"auto"`` is
+    ``"pallas"`` on the card and ``"native"`` on the CPU; ``"pallas"``
+    takes ``rfft_pow2`` where half the station chunk is a K-FFT row;
+    ``"native"`` is ``ops.fft.rfft``'s route (``"torch"`` below
+    ``fft_kernel_min``), the reference's ``fused`` route."""
+    r = resolve(routes)
+    sc = int(station_chunk)
+    impl = r.station_rfft
+    if impl == "auto":
+        impl = "pallas" if is_cuda else "native"
+    if (impl == "pallas" and (sc & (sc - 1)) == 0
+            and fft_rows.MIN_ROW <= sc // 2 <= fft_rows.MAX_ROW):
+        return "rows"
+    return _fft.route_name(sc, torch.float32, is_cuda, r, op="rfft")
 
 
 def _mesh_step(mesh: RadioMesh, n_band: int, shifts: Tuple[int, ...],

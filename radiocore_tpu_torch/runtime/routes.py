@@ -16,7 +16,14 @@ package's:
 - ``extract_ifft`` (``RADIOCORE_TPU_EXTRACT_IFFT``): the extraction's
   inverse transform (``ops/channelize``);
 - ``station_rfft`` (``RADIOCORE_TPU_STATION_RFFT``): the station rfft
-  of the ``fast`` multi-station step (``parallel/pipeline``);
+  of the ``fast`` multi-station step (``parallel/pipeline``) in its
+  ``off`` and ``fused`` modes. The reference's ``fused`` path ignores the
+  variable and takes its library transform; here ``fused`` follows the
+  field as ``off`` does, so ``"auto"`` runs K-FFT's ``rfft_pow2`` on the
+  card in both, on purpose: it beat cuFFT's rfft at 64 × 2^18 (0.173
+  against 0.196 ms, NVIDIA H100 80GB HBM3, 700 W, ``chip_smoke.py``),
+  and every ``fused`` time on record was taken with it. ``"native"``
+  gives the reference's ``fused`` route (no ``rfft_pow2`` launch);
 - ``env_fft`` (``RADIOCORE_TPU_ENV_FFT``): the envelope-rate transforms
   of the ``fast`` WBFM tail (``models/wbfm``);
 - ``fir_impl`` (``RADIOCORE_TPU_FIR_IMPL``): what ``ops.fir.fir_causal``
