@@ -135,6 +135,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     card against the port on the CPU (1e-4),
     the tones of stations 0, 64 and 127 (> 6 dB), the step time.
 
+19. (run after 16) holds every compiled step (``runtime/graphs``: on the
+    card each step the JAX package jits is captured once per signature as
+    a CUDA graph and replayed) against its eager body, ``step.eager``
+    (``[graphs]``): the main plan in ``fast`` and ``exact``, ``fir_impl``
+    ``fft`` and ``conv``, ``exact`` with ``fft_kernel_min = 2^16``, 96
+    stations in ``off``, ``fused`` and ``spec``, the ``nco`` step at 64
+    stations, config 5 in both modes, ``Decimate``, ``WBFM``, ``MFM`` and
+    ``FM`` at ``receive_fm``'s defaults, and the Tuner's band FFT,
+    ``run_all`` and ``run(i)``. Each on two chained chunks: outputs bit
+    for bit (or within 1e-6 of the max), launches a call by kernel and
+    K-FFT entry equal to eager's, chunk 1's outputs unchanged by chunk 2,
+    two calls from one state equal; the min and median device ms of 10
+    steps and the host's enqueue of one, graph and eager; the inputs'
+    copy-in and the outputs' clone-out; ``max_memory_reserved``.
+
+Every phase above drives the entry points a user calls, so on the card
+their steps are the compiled ones: the step times, launches and
+``[… ] profile`` lines are those of graph replays (``torch.profiler``
+lists a replay's kernels); ``stage_ms`` times ``step.stages``, which
+stay eager.
+
 The build fails the run if ``ptxas`` reports register spills for the
 demod pass of K-XDEMOD(-SPEC), for K-FIR's kernel or for K-NCO's.
 
@@ -1069,7 +1090,8 @@ def profile_step(what, step, band, state, steps: int = 10) -> None:
         busy += t1 - t0
         by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
     span = max(t1 for _, t1, _ in events) - events[0][0]
-    print(f"[{what}] profile, per step of {steps}: span "
+    kind = "graph replays" if hasattr(step, "eager") else "eager steps"
+    print(f"[{what}] profile of {kind}, per step of {steps}: span "
           f"{span / steps / 1e3:.3f} ms, device busy "
           f"{busy / steps / 1e3:.3f} ms, idle share "
           f"{max(0.0, 1.0 - busy / span):.3f}")
@@ -1789,6 +1811,242 @@ def check_routes(device, gen, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 19, [graphs]: the compiled steps (runtime/graphs) against their
+# eager bodies, at the sizes of the phases that drive them.
+# ---------------------------------------------------------------------------
+GRAPH_REL_MAX = 1e-6    # graph against eager, of the eager output's max
+GRAPH_REPS = 10
+
+
+def tensors(tree) -> list:
+    """The tensor leaves of dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensors(v)]
+    return [tree] if hasattr(tree, "data_ptr") else []
+
+
+def kernel_counters() -> dict:
+    """Every kernel's launch counter and K-FFT's by entry, by name."""
+    from radiocore_tpu_torch.kernels import (extract, extract_demod as xd,
+                                             fft_mixed, fft_rows, fir,
+                                             nco_pll)
+    return {"K-FFT": fft_rows.launches,
+            **{f"K-FFT {e}": c for e, c in fft_rows.entry_launches.items()},
+            "K-MIXED": fft_mixed.launches, "K-EXTRACT": extract.launches,
+            "K-XDEMOD": xd.launches, "K-XDEMOD-SPEC": xd.spec_launches,
+            "K-FIR": fir.launches, "K-NCO": nco_pll.launches}
+
+
+def times_ms(fn):
+    """``GRAPH_REPS`` calls of ``fn()``: the min and median of their
+    CUDA-event times and the host's time to enqueue one (its clock
+    around the calls, before the synchronize)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    host = (time.perf_counter() - t0) * 1e3 / GRAPH_REPS
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in pairs]
+    return min(ms), statistics.median(ms), host
+
+
+def drive_graph(label, step, chunks, state=None, extra=(), card="") -> None:
+    """One compiled step against its eager body (``step.eager``) on two
+    chunks, chained through the state when ``state`` is given, each
+    call ``step(chunk[, state], *extra)``: outputs bit for bit (or within
+    ``GRAPH_REL_MAX`` of the max), launches a call by kernel and K-FFT
+    entry equal to eager's, chunk 1's outputs unchanged by chunk 2, two
+    calls from ``state`` equal; device and host times of both, the
+    inputs' copy-in and the outputs' clone-out, ``max_memory_reserved``.
+    Raises on a failed check."""
+    import torch
+
+    def call(fn, x, st):
+        return fn(x, *(() if state is None else (st,)), *extra)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g0 = call(step, chunks[0], state)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    held = [t.clone() for t in tensors(g0)]
+    s1 = None if state is None else g0[1]
+    g1 = call(step, chunks[1], s1)
+    again = call(step, chunks[0], state)
+    pairs = [(g, call(step.eager, x, st))
+             for g, x, st in ((g0, chunks[0], state), (g1, chunks[1], s1))]
+    bitwise, err, scale = True, 0.0, 0.0
+    for g, e in pairs:
+        for a, b in zip(tensors(g), tensors(e)):
+            bitwise &= bool(torch.equal(a, b))
+            if a.is_floating_point() or a.is_complex():
+                err = max(err, float((a - b).abs().max()))
+                scale = max(scale, float(b.abs().max()))
+    held_ok = all(torch.equal(h, t) for h, t in zip(held, tensors(g0)))
+    twice = all(torch.equal(a, b)
+                for a, b in zip(tensors(again), tensors(g0)))
+    counters = kernel_counters()
+
+    def per_call(fn):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        call(fn, chunks[1], s1)
+        torch.cuda.synchronize()
+        return {k: c.count for k, c in counters.items() if c.count}
+
+    launches, eager_launches = per_call(step), per_call(step.eager)
+    graph_t = times_ms(lambda: call(step, chunks[1], s1))
+    eager_t = times_ms(lambda: call(step.eager, chunks[1], s1))
+    ins = tensors((chunks[1], s1, extra))
+    bufs = [torch.empty_like(t) for t in ins]
+    copy_in = time_ms(lambda: [b.copy_(t) for b, t in zip(bufs, ins)],
+                      reps=GRAPH_REPS)
+    clone_out = time_ms(lambda: [t.clone() for t in tensors(g1)],
+                        reps=GRAPH_REPS)
+    reserved = torch.cuda.max_memory_reserved() / 1e9
+    same = ("bit for bit" if bitwise else
+            f"max_abs {err:.3e} of max {scale:.3e} (bound "
+            f"{GRAPH_REL_MAX:.0e} of the max)")
+    print(f"[graphs] {label}: first call {first_s:.2f} s (warm-up and "
+          f"capture); graph vs eager {same}; launches a call {launches} "
+          f"(eager {eager_launches}); chunk 1 held across chunk 2 "
+          f"{held_ok}; two calls from state0 equal {twice}; graph "
+          f"{graph_t[0]:.3f} / {graph_t[1]:.3f} ms (min / median of "
+          f"{GRAPH_REPS}), host enqueue {graph_t[2]:.3f}; eager "
+          f"{eager_t[0]:.3f} / {eager_t[1]:.3f}, host enqueue "
+          f"{eager_t[2]:.3f}; copy-in {copy_in:.3f} ms, clone-out "
+          f"{clone_out:.3f} ms; max_memory_reserved {reserved:.2f} GB; "
+          f"{card}", flush=True)
+    bad = []
+    if not (bitwise or err <= GRAPH_REL_MAX * scale):
+        bad.append(f"graph and eager differ by {err} (max {scale})")
+    if launches != eager_launches:
+        bad.append(f"launches {launches}, eager {eager_launches}")
+    if not held_ok:
+        bad.append("chunk 1's outputs changed by chunk 2")
+    if not twice:
+        bad.append("two calls from state0 differ")
+    if bad:
+        raise AssertionError(f"[graphs] {label}: " + "; ".join(bad))
+
+
+def check_graphs(device, gen, card: str) -> None:
+    """Phase 19: every compiled entry (``runtime/graphs``) at the sizes of
+    the eager phases that drive it."""
+    import gc
+    import torch
+    from radiocore_tpu_torch import models
+    from radiocore_tpu_torch.apps.iq import SyntheticFmSource
+    from radiocore_tpu_torch.models.wbfm import (make_wbfm_step,
+                                                 wbfm_init_state)
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    from radiocore_tpu_torch.runtime.graphs import compile_step
+    from radiocore_tpu_torch.runtime.routes import Routes
+    from radiocore_tpu_torch.tools.tuner import Tuner
+
+    def done():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    plans = (  # label, stations, mode, extract_demod, routes
+        ("main fast", N_STATIONS, "fast", "off", None),
+        ("main exact", N_STATIONS, "exact", "off", None),
+        ("fast fir_impl=fft", N_STATIONS, "fast", "off",
+         Routes(fir_impl="fft")),
+        ("fast fir_impl=conv", N_STATIONS, "fast", "off",
+         Routes(fir_impl="conv")),
+        ("exact fft_kernel_min=2^16", N_STATIONS, "exact", "off",
+         Routes(fft_kernel_min=1 << 16)),
+        ("96 off", N_STATIONS_96, "fast", "off", None),
+        ("96 fused", N_STATIONS_96, "fast", "fused", None),
+        ("96 spec", N_STATIONS_96, "fast", "spec", None),
+    )
+    bands = {}
+    for label, c, mode, xd, routes in plans:
+        if c not in bands:
+            bands = {c: [fm_band(gen, c, STATION, device) for _ in range(2)]}
+        step, state = make_multi_station_step(
+            c * STATION, offsets(c, STATION), STATION, AUDIO, mode=mode,
+            extract_demod=xd, device=device, routes=routes)
+        drive_graph(f"{label}, {c} x {STATION}", step, bands[c], state,
+                    card=card)
+        del step, state
+        done()
+    del bands
+
+    iq = [fm_stations(gen, N_STATIONS, STATION, device).to(torch.complex64)
+          for _ in range(2)]
+    step = compile_step(make_wbfm_step(STATION, AUDIO, mode="exact",
+                                       pll="nco"), device)
+    drive_graph(f"nco, {N_STATIONS} x {STATION} (the WBFM(pll='nco') "
+                f"step)", step, iq,
+                wbfm_init_state(AUDIO, batch_shape=(N_STATIONS,), pll="nco",
+                                device=device), card=card)
+    del step, iq
+    done()
+
+    band_np, offs, _ = config5_band()
+    b5 = torch.from_numpy(band_np).to(device)
+    for mode in ("fast", "exact"):
+        step, state = make_multi_station_step(
+            C5_BAND, offs, C5_STATION, C5_AUDIO, mode=mode, device=device)
+        drive_graph(f"config5 {mode}, {C5_STATIONS} x {C5_STATION}", step,
+                    [b5, torch.roll(b5, 4096)], state, card=card)
+        del step, state
+    del b5
+    done()
+
+    # receive_fm's defaults: 2.4 MS/s -> 240 kS/s -> 48 kHz.
+    rx_in, rx_demod, rx_audio = 2_400_000, 240_000, 48_000
+    src = SyntheticFmSource(rx_in, [0], rx_demod, seed=SEED)
+    raw = [torch.from_numpy(src.read_chunk(1.0)).to(device)
+           for _ in range(2)]
+    dec = models.Decimate(rx_in, rx_demod, device=device)
+    drive_graph(f"Decimate {rx_in} -> {rx_demod}", dec._run, raw,
+                card=card)
+    station = [dec.run(x) for x in raw]
+    for name in ("WBFM", "MFM", "FM"):
+        obj = getattr(models, name)(rx_demod, rx_audio, device=device)
+        drive_graph(f"{name} {rx_demod} -> {rx_audio}", obj._step, station,
+                    getattr(obj, "_state", None), card=card)
+        del obj
+    del raw, station, dec
+    done()
+
+    tuner = Tuner(device=device)
+    for off in offsets(N_STATIONS, STATION):
+        tuner.add_channel(100e6 + off, STATION, None)
+    two = [fm_band(gen, N_STATIONS, STATION, device) for _ in range(2)]
+    drive_graph(f"Tuner.load band FFT, 2^24", tuner._band_fft, two,
+                card=card)
+    spectra = []
+    for band in two:
+        tuner.load(band)
+        spectra.append(tuner._spectrum)
+    tuner.run_all()
+    drive_graph(f"Tuner.run_all, {N_STATIONS} x {STATION}",
+                tuner._extract_all[1], spectra, card=card)
+    ch = tuner.channels()[1]
+    drive_graph(f"Tuner.run(1), {STATION}", tuner._run_one, spectra,
+                extra=(tuner._shift(ch), int(ch.bandwidth)), card=card)
+    del tuner, two, spectra
+    done()
+
+
+# ---------------------------------------------------------------------------
 # Phase 14: the apps' path and the host edge under it.
 # ---------------------------------------------------------------------------
 
@@ -1968,17 +2226,48 @@ def check_tuner(device, gen) -> None:
 
 
 class ListSink:
-    """Keeps every chunk of audio it is given."""
+    """Keeps every chunk of audio it is given, and the host's clock at
+    each write."""
 
     def __init__(self):
         self.chunks = []
+        self.times = []
 
     def write(self, audio):
         import numpy as np
         self.chunks.append(np.array(audio, copy=True))
+        self.times.append(time.perf_counter())
 
     def close(self):
         pass
+
+
+def stage_timer():
+    """A ``StageTimer`` that also keeps each stage's times, so that the
+    steady state (every chunk after the first, whose call builds the
+    step's graph) can be told from the mean."""
+    import contextlib
+    from radiocore_tpu_torch.runtime.profiling import StageTimer
+
+    class Timer(StageTimer):
+        def __init__(self):
+            super().__init__()
+            self.times = {}
+
+        @contextlib.contextmanager
+        def stage(self, name, sync_value=None):
+            t0 = time.perf_counter()
+            with super().stage(name, sync_value):
+                yield
+            self.times.setdefault(name, []).append(time.perf_counter() - t0)
+
+        def steady_ms(self) -> str:
+            """Each stage's median over the calls after its first."""
+            return ", ".join(
+                f"{k} {statistics.median(v[1:]) * 1e3:.2f} ms"
+                for k, v in self.times.items() if len(v) > 1)
+
+    return Timer()
 
 
 def check_serve_fused(device, gen, main_step) -> None:
@@ -1992,7 +2281,6 @@ def check_serve_fused(device, gen, main_step) -> None:
     from radiocore_tpu_torch.apps.multi_fm_server import (StationSpec,
                                                           serve_fused)
     from radiocore_tpu_torch.runtime.metrics import Metrics
-    from radiocore_tpu_torch.runtime.profiling import StageTimer
 
     slot = N_STATIONS // 3
     bands = [fm_band(gen, N_STATIONS, STATION, device, real_slot=slot)
@@ -2014,7 +2302,7 @@ def check_serve_fused(device, gen, main_step) -> None:
         audio, state = step(bands[k % 2], state)
         refs.append(audio.cpu().numpy())
     sinks = [ListSink() for _ in specs]
-    metrics, timer = Metrics(), StageTimer()
+    metrics, timer = Metrics(), stage_timer()
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/band.cf32"
         t0 = time.perf_counter()
@@ -2045,6 +2333,11 @@ def check_serve_fused(device, gen, main_step) -> None:
         f"{k} {v['mean_ms']:.2f} ms" for k, v in rep.items())
         + f"; between stages (the pipe's host memcpy into its slot, the "
           f"copy's launch) {(wall - staged) * 1e3 / APPS_CHUNKS:.2f} ms")
+    done = sinks[0].times
+    print(f"[serve_fused] steady state, chunks 2-{APPS_CHUNKS} (chunk 1 "
+          f"builds the step's graph): "
+          f"{(len(done) - 1) / (done[-1] - done[0]):.2f} chunks/s; stage "
+          f"medians {timer.steady_ms()}")
     print(f"[serve_fused] launches {counts} (= {APPS_CHUNKS} x one step "
           f"{per_step}); audio against the same step on the bands already "
           f"on the card max_abs {err:.3e} (bound {SERVE_ABS_MAX:.0e})")
@@ -2067,7 +2360,6 @@ def check_receive_fm(device) -> None:
     from radiocore_tpu_torch.runtime.config import (PipelineConfig,
                                                     StationConfig)
     from radiocore_tpu_torch.runtime.metrics import Metrics
-    from radiocore_tpu_torch.runtime.profiling import StageTimer
 
     config = PipelineConfig(input_rate=2.4e6, demod_rate=240e3,
                             audio_rate=48e3,
@@ -2081,7 +2373,7 @@ def check_receive_fm(device) -> None:
     sinks = {}
     for where, secs in ((device, RX_SECONDS), ("cpu", RX_CPU_SECONDS)):
         sinks[where] = sink = ListSink()
-        metrics, timer = Metrics(), StageTimer()
+        metrics, timer = Metrics(), stage_timer()
         fir.launches.reset()
         t0 = time.perf_counter()
         rx.run(config, source(), sink, secs, metrics, timer,
@@ -2093,7 +2385,8 @@ def check_receive_fm(device) -> None:
               f"{int(snap['ring_overflows'])}, K-FIR launches "
               f"{fir.launches.count}; stage means " + ", ".join(
                   f"{k} {v['mean_ms']:.2f} ms"
-                  for k, v in timer.report().items()))
+                  for k, v in timer.report().items())
+              + f"; medians after the first chunk {timer.steady_ms()}")
         if len(sink.chunks) != secs or snap["ring_overflows"]:
             raise AssertionError(f"receive_fm on {where}: {len(sink.chunks)} "
                                  f"chunks, {snap['ring_overflows']} overflows")
@@ -2710,6 +3003,11 @@ def main(argv=()) -> int:
         runs.update(check_routes(device, gen, smi.splitlines()[0]))
         lap("[routes]")
 
+    def phase_graphs():
+        # Phase 19: the compiled steps against their eager bodies.
+        check_graphs(device, gen, smi.splitlines()[0])
+        lap("[graphs]")
+
     def phase_acceptance():
         # Phase 17: the port's acceptance drive, every config, on the card.
         from radiocore_tpu_torch.tools import acceptance
@@ -2752,8 +3050,8 @@ def main(argv=()) -> int:
     for run_phase in (phase_main, phase_band, phase_dead, phase_paths96,
                       phase_nco, phase_firpilot, phase_exact, phase_ncopath,
                       phase_classes, phase_deadstep, phase_routes,
-                      phase_apps, phase_acceptance, phase_config5,
-                      phase_parallel):
+                      phase_graphs, phase_apps, phase_acceptance,
+                      phase_config5, phase_parallel):
         run_phase()
 
     for name in ROUTE_ENTRIES:

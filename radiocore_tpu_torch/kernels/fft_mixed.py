@@ -29,6 +29,7 @@ import torch
 from radiocore_tpu_torch.kernels import fft_rows
 from radiocore_tpu_torch.kernels.fft_rows import (MAX_ROW, MIN_ROW, Pass,
                                                   LaunchCounter)
+from radiocore_tpu_torch.runtime.graphs import device_cache
 
 MAX_A = 128     # the column pass's longest DFT (csrc/fft_mixed.cu kMaxA)
 MAX_B = 1 << 18
@@ -80,7 +81,7 @@ def row_passes(a: int, b: int) -> Tuple[Pass, ...]:
     return tuple(passes)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def mixed_table(a: int, b: int, sign: float, device: torch.device
                 ) -> torch.Tensor:
     """The column pass's twiddles in complex64, one tensor: ``W_a^e =

@@ -19,7 +19,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -41,12 +41,18 @@ POINTS_PER_THREAD = 16        # csrc/fft_common.cuh kVals
 MIN_GROUP = 4           # sub-FFTs per block at least: 32-byte strided runs
 TWIDDLE_BITS = 12       # two-level twiddle tables of 2^12 entries
 
+COUNTERS: List["LaunchCounter"] = []
+
 
 class LaunchCounter:
-    """Number of kernel launches since the last :meth:`reset`."""
+    """Number of kernel launches since the last :meth:`reset`. Every
+    counter registers itself in :data:`COUNTERS`, where a compiled step
+    (``runtime/graphs``) reads what its capture counted, to add it again
+    at every replay."""
 
     def __init__(self) -> None:
         self.count = 0
+        COUNTERS.append(self)
 
     def reset(self) -> None:
         self.count = 0

@@ -17,13 +17,13 @@ A CUDA tensor launches the kernel (or raises); a CPU tensor runs
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from radiocore_tpu_torch.kernels.fft_rows import LaunchCounter
+from radiocore_tpu_torch.ops.consts import device_array
 
 MAX_TAPS = 4096
 # The geometry of csrc/fir.cu (kR, kC, kThreads, kTile).
@@ -46,7 +46,7 @@ def fir_causal_plain(x: torch.Tensor, taps,
         history = torch.zeros(x.shape[:-1] + (t - 1,), dtype=x.dtype,
                               device=x.device)
     xp = torch.cat([history.to(x.dtype), x], dim=-1)
-    tp = torch.from_numpy(taps).to(device=x.device, dtype=x.real.dtype)
+    tp = device_array(taps, x.device, x.real.dtype)
     y = torch.zeros_like(x)
     for k in range(t):
         y += tp[k] * xp[..., t - 1 - k:t - 1 - k + n]
@@ -70,12 +70,6 @@ def smem_bytes(num_taps: int) -> int:
     """Dynamic shared memory of a block: padded taps and skewed tile."""
     halo = staged_chunks(num_taps) * TAP_CHUNK
     return 4 * (halo + skew(halo + TILE))
-
-
-@functools.lru_cache(maxsize=32)
-def _device_taps(taps_bytes: bytes, device: torch.device) -> torch.Tensor:
-    taps = np.frombuffer(taps_bytes, dtype=np.float32).copy()
-    return torch.from_numpy(taps).to(device)
 
 
 def _rows(t: torch.Tensor, width: int, what: str) -> torch.Tensor:
@@ -109,7 +103,7 @@ def _fir_kernel(x: torch.Tensor, taps: np.ndarray,
                 f"{tuple(history.shape)} on {history.device}")
         h2 = _rows(history, t - 1, "history")
         hist_ptr, hist_stride = h2.data_ptr(), h2.stride(0)
-    tp = _device_taps(taps.astype(np.float32).tobytes(), x.device)
+    tp = device_array(taps.astype(np.float32), x.device)
     lib = build.library()
     y = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     err = lib.rc_fir(x2.data_ptr(), x2.stride(0), hist_ptr, hist_stride,

@@ -1,7 +1,9 @@
 """Zero-phase FIR bandpass filter class; counterpart of
 ``radiocore_tpu/models/bandpass.py``: taps by ``firwin(num_taps, [lo, hi],
 pass_zero=False, window='hamm')`` with Hz normalized under the one-second
-convention; ``run`` filters forward and backward like ``filtfilt``."""
+convention; ``run`` filters forward and backward like ``filtfilt``. On a
+card the filter is captured once per input signature as a CUDA graph and
+returns fresh tensors (``runtime/graphs``)."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops.fir import zero_phase_fir
+from radiocore_tpu_torch.runtime.graphs import compile_step
 from radiocore_tpu_torch.runtime.platform import resolve_device
 from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import (as_torch_dtype,
@@ -32,10 +35,11 @@ class Bandpass:
         self._input_size = int(input_size)
         self._dtype = as_torch_dtype(dtype)
         self._device = resolve_device(device)
-        self._routes = routes
-        self._taps = design.bandpass_taps(num_taps, float(start_freq),
-                                          float(stop_freq), self._input_size,
-                                          win=window)
+        self._taps = taps = design.bandpass_taps(
+            num_taps, float(start_freq), float(stop_freq), self._input_size,
+            win=window)
+        self._run = compile_step(
+            lambda x: zero_phase_fir(x, taps, routes=routes), self._device)
 
     @property
     def taps(self) -> np.ndarray:
@@ -48,4 +52,4 @@ class Bandpass:
             raise ValueError("input_sig size and input_size mismatch")
         put = to_device_c64 if self._dtype.is_complex else to_device_f32
         x = put(input_sig, self._device).to(self._dtype)
-        return zero_phase_fir(x, self._taps, routes=self._routes)
+        return self._run(x)

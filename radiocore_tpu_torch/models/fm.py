@@ -15,6 +15,7 @@ from radiocore_tpu_torch.ops.consts import HostConst
 from radiocore_tpu_torch.ops.demod import quadrature_demod
 from radiocore_tpu_torch.ops.resample import (real_resample_weights,
                                               resample_real)
+from radiocore_tpu_torch.runtime.graphs import compile_step
 from radiocore_tpu_torch.runtime.platform import resolve_device
 from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import to_device_c64, to_host
@@ -45,7 +46,9 @@ def make_fm_step(input_size: int, output_size: int,
 class FM:
     """Stateful wrapper with the reference ``run`` API; output ``(N, 1)``.
     Runs on ``device`` (the first CUDA device when None) through
-    ``routes`` (None: the defaults)."""
+    ``routes`` (None: the defaults). On a card its step is captured once
+    per input signature as a CUDA graph and returns fresh tensors
+    (``runtime/graphs``)."""
 
     def __init__(self, input_size: Union[int, float],
                  output_size: Union[int, float],
@@ -56,8 +59,9 @@ class FM:
         self._input_size = int(input_size)
         self._output_size = int(output_size)
         self._device = resolve_device(device)
-        self._step = make_fm_step(self._input_size, self._output_size,
-                                  routes)
+        self._step = compile_step(
+            make_fm_step(self._input_size, self._output_size, routes),
+            self._device)
 
     @property
     def channels(self) -> int:

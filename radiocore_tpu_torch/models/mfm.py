@@ -12,6 +12,7 @@ from radiocore_tpu_torch.models.fm import make_fm_step
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops.deemphasis import (deemphasis_apply,
                                                 deemphasis_init)
+from radiocore_tpu_torch.runtime.graphs import compile_step
 from radiocore_tpu_torch.runtime.platform import resolve_device
 from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import to_device_c64, to_host
@@ -54,7 +55,9 @@ def make_mfm_step(input_size: int, output_size: int,
 class MFM:
     """Stateful wrapper with the reference ``run`` API; output ``(N, 1)``.
     Runs on ``device`` (the first CUDA device when None) through
-    ``routes`` (None: the defaults)."""
+    ``routes`` (None: the defaults). On a card its step is captured once
+    per input signature as a CUDA graph and returns fresh tensors
+    (``runtime/graphs``)."""
 
     def __init__(self, input_size: Union[int, float],
                  output_size: Union[int, float],
@@ -65,8 +68,9 @@ class MFM:
         self._input_size = int(input_size)
         self._output_size = int(output_size)
         self._device = resolve_device(device)
-        self._step = make_mfm_step(self._input_size, self._output_size,
-                                   deemphasis, routes)
+        self._step = compile_step(
+            make_mfm_step(self._input_size, self._output_size, deemphasis,
+                          routes), self._device)
         self._state = mfm_init_state(self._output_size, deemphasis,
                                      device=self._device)
 

@@ -1,7 +1,9 @@
 """Analytic-signal pilot tracker ("PLL"); counterpart of
 ``radiocore_tpu/models/pll.py``: not a feedback loop — ``step`` stores
 the Hilbert analytic signal of the pilot; ``real`` and ``image`` give
-unit-amplitude harmonics by raising it to an integer power."""
+unit-amplitude harmonics by raising it to an integer power. On a card the
+analytic signal is captured once per input signature as a CUDA graph and
+returns fresh tensors (``runtime/graphs``)."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import numpy as np
 import torch
 
 from radiocore_tpu_torch.ops.analytic import analytic_signal, pll_harmonic
+from radiocore_tpu_torch.runtime.graphs import compile_step
 from radiocore_tpu_torch.runtime.platform import resolve_device
 from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import (to_device_c64,
@@ -23,7 +26,8 @@ class PLL:
                  routes: Optional[Routes] = None):
         del cuda  # kept for the reference's signature; ``device`` decides
         self._device = resolve_device(device)
-        self._routes = routes
+        self._analytic = compile_step(
+            lambda x: analytic_signal(x, routes), self._device)
         self._baseline = None
 
     def step(self, input_sig) -> None:
@@ -31,8 +35,7 @@ class PLL:
                       if isinstance(input_sig, torch.Tensor)
                       else np.iscomplexobj(input_sig))
         put = to_device_c64 if is_complex else to_device_f32
-        self._baseline = analytic_signal(put(input_sig, self._device),
-                                         self._routes)
+        self._baseline = self._analytic(put(input_sig, self._device))
 
     def real(self, mult: float = 1.0) -> torch.Tensor:
         """Real part of the locked carrier at harmonic ``mult`` (cosine)."""

@@ -47,6 +47,7 @@ from radiocore_tpu_torch.ops.nco_pll import (nco_pll_track, pll_design,
 from radiocore_tpu_torch.ops.resample import (_fold_window_onesided,
                                               real_resample_weights,
                                               resample_real)
+from radiocore_tpu_torch.runtime.graphs import compile_step
 from radiocore_tpu_torch.runtime.platform import resolve_device
 from radiocore_tpu_torch.runtime.routes import Routes, resolve
 from radiocore_tpu_torch.runtime.transfer import to_device_c64, to_host
@@ -257,7 +258,8 @@ class WBFM:
     ``run(input_sig, numpy_output=True)`` gives ``(output_size, 2)``
     stereo audio and carries the state across calls. Runs on ``device``
     (the first CUDA device when None) through ``routes`` (None: the
-    defaults)."""
+    defaults). On a card its step is captured once per input signature as
+    a CUDA graph and returns fresh tensors (``runtime/graphs``)."""
 
     def __init__(self, input_size: Union[int, float],
                  output_size: Union[int, float],
@@ -269,9 +271,9 @@ class WBFM:
         self._input_size = int(input_size)
         self._output_size = int(output_size)
         self._device = resolve_device(device)
-        self._step = make_wbfm_step(self._input_size, self._output_size,
-                                    deemphasis, mode=mode, pll=pll,
-                                    routes=routes)
+        self._step = compile_step(
+            make_wbfm_step(self._input_size, self._output_size, deemphasis,
+                           mode=mode, pll=pll, routes=routes), self._device)
         self._state = wbfm_init_state(self._output_size, deemphasis, pll=pll,
                                       device=self._device)
 

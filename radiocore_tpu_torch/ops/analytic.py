@@ -3,17 +3,17 @@ counterpart of ``radiocore_tpu/ops/analytic.py``."""
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
 
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops import fft as _fft
+from radiocore_tpu_torch.runtime.graphs import device_cache
 from radiocore_tpu_torch.runtime.routes import Routes
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _hilbert(n: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """The Hilbert multiplier on ``device``, copied there once per size."""
     return torch.from_numpy(design.hilbert_multiplier(n)).to(

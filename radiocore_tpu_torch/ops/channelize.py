@@ -23,7 +23,6 @@ IFFT. ``routes.extract_ifft`` picks the lowering, as the reference's
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +33,7 @@ from radiocore_tpu_torch.kernels.extract import extract_ok, extract_rows
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops import fft as _fft
 from radiocore_tpu_torch.ops.consts import HostConst
+from radiocore_tpu_torch.runtime.graphs import device_cache
 from radiocore_tpu_torch.runtime.routes import Routes, resolve
 
 
@@ -89,7 +89,7 @@ def make_extractor(n: int, shifts: Sequence[int], bandwidth: int,
                       resolve(routes))
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(maxsize=32)
 def _extractor(n: int, shifts: Tuple[int, ...], m: int,
                routes: Routes) -> Callable[[torch.Tensor], torch.Tensor]:
     c = len(shifts)

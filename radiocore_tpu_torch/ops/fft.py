@@ -22,13 +22,13 @@ the extraction's ``extract_ifft="fourstep"``.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from radiocore_tpu_torch.kernels import fft_mixed, fft_rows
+from radiocore_tpu_torch.runtime.graphs import device_cache
 from radiocore_tpu_torch.runtime.routes import Routes, at_least, resolve
 
 # The dtype each kind of transform's kernel takes.
@@ -106,7 +106,7 @@ def _split(n: int) -> Tuple[int, int]:
     return a, n // a
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(maxsize=32)
 def _twiddle(n1: int, n2: int, sign: float, dtype: torch.dtype,
              device: torch.device) -> torch.Tensor:
     """``exp(sign·2πi·k1·j/n)`` as (n1, n2): the angle from ``k1·j mod n``

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from radiocore_tpu_torch.kernels import fir as kfir
 from radiocore_tpu_torch.ops import fft as _fft
+from radiocore_tpu_torch.runtime.graphs import device_cache
 from radiocore_tpu_torch.runtime.routes import Routes, resolve
 
 KERNEL_MIN_LEN = 16384
@@ -111,6 +112,16 @@ def fir_stream(x: torch.Tensor, taps, history: torch.Tensor,
     return y, new_history
 
 
+@device_cache(maxsize=32)
+def _tap_spectrum(taps: bytes, nfft: int, onesided: bool,
+                  dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The ``nfft``-point spectrum of the float64 ``taps`` (its rfft when
+    ``onesided``) on ``device``, computed and copied there once."""
+    t = np.frombuffer(taps, dtype=np.float64)
+    h = np.fft.rfft(t, nfft) if onesided else np.fft.fft(t, nfft)
+    return torch.from_numpy(h).to(device=device, dtype=dtype)
+
+
 def fir_overlap_save(x: torch.Tensor, taps,
                      history: Optional[torch.Tensor] = None,
                      block: int = 1 << 15,
@@ -149,13 +160,11 @@ def fir_overlap_save(x: torch.Tensor, taps,
 
     double = x.real.dtype == torch.float64
     cdtype = torch.complex128 if double else torch.complex64
+    hs = _tap_spectrum(taps_np.tobytes(), nfft, not x.is_complex(), cdtype,
+                       x.device)
     if x.is_complex():
-        hs = torch.from_numpy(np.fft.fft(taps_np, nfft)).to(
-            device=x.device, dtype=cdtype)
         y = _fft.ifft(_fft.fft(segs, routes) * hs, routes).to(x.dtype)
     else:
-        hs = torch.from_numpy(np.fft.rfft(taps_np, nfft)).to(
-            device=x.device, dtype=cdtype)
         y = _fft.irfft(_fft.rfft(segs, routes) * hs, nfft,
                        routes).to(x.dtype)
     # Valid region of each block: samples t-1 .. t-1+block-1.

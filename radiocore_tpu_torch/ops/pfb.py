@@ -23,6 +23,7 @@ import torch
 from scipy import signal as _sig
 
 from radiocore_tpu_torch.ops import fft as _fft
+from radiocore_tpu_torch.ops.consts import device_array
 from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.platform import resolve_device
 
@@ -90,7 +91,7 @@ def pfb_channelize(x: torch.Tensor, taps: np.ndarray, n_channels: int,
     # float32 as in the reference.
     kernels = np.ascontiguousarray(taps.reshape(p, m).T[:, ::-1],
                                    dtype=np.float32)
-    kern = torch.from_numpy(kernels).to(device=x.device, dtype=x.real.dtype)
+    kern = device_array(kernels, x.device, x.real.dtype)
     y = _branch_conv(z, kern).to(x.dtype)
 
     # M-point DFT over the branch axis picks the channel centres k·fs/M

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from radiocore_tpu_torch.ops import fft as _fft
+from radiocore_tpu_torch.ops.consts import device_array
 from radiocore_tpu_torch.runtime.routes import Routes
 
 
@@ -59,9 +60,9 @@ def resample_real(x: torch.Tensor, num: int, weights: torch.Tensor,
 
 
 def _on(w: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """Host weights as a real tensor of ``like``'s precision and device."""
-    return torch.from_numpy(np.ascontiguousarray(w)).to(
-        device=like.device, dtype=like.real.dtype)
+    """Host weights as a real tensor of ``like``'s precision and device,
+    copied there once per contents (``ops.consts.device_array``)."""
+    return device_array(w, like.device, like.real.dtype)
 
 
 def resample_fft(x: torch.Tensor, num: int,

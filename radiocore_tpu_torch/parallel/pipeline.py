@@ -52,6 +52,7 @@ from radiocore_tpu_torch.parallel.channelize_sharded import make_extract_body
 from radiocore_tpu_torch.parallel.collectives import all_gather
 from radiocore_tpu_torch.parallel.mesh import (FLAT, RadioMesh,
                                                station_sharding)
+from radiocore_tpu_torch.runtime.graphs import compile_step
 from radiocore_tpu_torch.runtime.platform import resolve_device
 from radiocore_tpu_torch.runtime.routes import Routes, resolve
 
@@ -99,6 +100,11 @@ def make_multi_station_step(
     per-stage timing: ``band_fft``, ``extract`` and ``demod_tail`` for
     ``"off"``; ``band_fft``, ``extract_demod`` and ``tail`` otherwise.
 
+    On one CUDA device the step is compiled (``runtime/graphs``): captured
+    once per input signature as a CUDA graph, replayed for each chunk, and
+    returning fresh tensors; ``step.eager`` is its eager body and
+    ``step.stages`` stay eager.
+
     With ``mesh`` (a :class:`~radiocore_tpu_torch.parallel.mesh.RadioMesh`;
     ``extract_demod="off"``, as the reference's mesh path takes no fused
     route) each rank builds and runs its own step on ``mesh.device``:
@@ -111,6 +117,7 @@ def make_multi_station_step(
     otherwise the band is gathered and each rank extracts its own
     stations. Either way each rank demodulates its stations as one
     device does. ``step.stages`` is ``front_end`` and ``demod_tail``.
+    The mesh step stays eager: its gloo collectives run on the host.
 
     ``routes`` (None: the defaults) goes to the band FFT, the extractor
     (``extract_ifft``), the tail (``env_fft``, ``fir_impl``, its
@@ -217,7 +224,7 @@ def make_multi_station_step(
     step.stages = stages
     state0 = wbfm_init_state(audio_chunk, deemphasis,
                              batch_shape=(n_stations,), device=device)
-    return step, state0
+    return compile_step(step, device), state0
 
 
 def station_rfft_route(station_chunk: int, is_cuda: bool,

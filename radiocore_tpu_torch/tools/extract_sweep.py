@@ -90,7 +90,9 @@ def sweep_kernels(device, gen) -> None:
 
 def compare_steps(device, gen) -> None:
     """Each step at the default schedule and with the passes over the
-    whole batch (``extract.grouped_schedule`` replaced for the turn)."""
+    whole batch (``extract.grouped_schedule`` replaced for the turn). A
+    step's CUDA graph keeps the schedule it was captured with, so each
+    turn builds and captures its own step."""
     import torch
     from radiocore_tpu_torch.kernels import extract
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
@@ -102,22 +104,23 @@ def compare_steps(device, gen) -> None:
 
     for c, mode in ((64, "off"), (96, "fused"), (96, "off")):
         n = c * STATION
-        step, state = make_multi_station_step(
-            n, offsets(c, STATION), STATION, AUDIO, mode="fast",
-            extract_demod=mode, device=device)
         band = torch.complex(torch.randn(n, generator=gen, device=device),
                              torch.randn(n, generator=gen, device=device))
         times = []
         for schedule in (default, whole_batch, whole_batch, default):
             extract.grouped_schedule = schedule
             try:
+                step, state = make_multi_station_step(
+                    n, offsets(c, STATION), STATION, AUDIO, mode="fast",
+                    extract_demod=mode, device=device)
                 times.append(time_ms(lambda: step(band, state)))
             finally:
                 extract.grouped_schedule = default
+            del step, state
         g1, w1, w2, g2 = times
         print(f"[step] {c} stations {mode}: grouped {g1:.3f} / {g2:.3f} ms, "
               f"whole batch {w1:.3f} / {w2:.3f} ms")
-        del step, state, band
+        del band
 
 
 def main() -> int:

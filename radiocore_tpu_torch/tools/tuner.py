@@ -15,12 +15,17 @@ band on the card, K-MIXED for a·2^k ≥ 2^23, ``torch.fft`` otherwise).
 plan on the card); per-channel ``run(i)`` (roll, fftshift'd hann window,
 frequency-domain resample) remains for drop-in parity and for
 heterogeneous channel bandwidths.
+
+On a card each of the three is compiled (``runtime/graphs``), as the JAX
+package jits its band FFT and its extractor: captured once per input
+signature as a CUDA graph (``run(i)`` once per channel) and returning
+fresh tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +34,7 @@ from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops import fft as _fft
 from radiocore_tpu_torch.ops.channelize import make_extractor
 from radiocore_tpu_torch.ops.resample import resample_spectrum
+from radiocore_tpu_torch.runtime.graphs import compile_step
 from radiocore_tpu_torch.runtime.platform import resolve_device
 from radiocore_tpu_torch.runtime.routes import Routes
 from radiocore_tpu_torch.runtime.transfer import to_device_c64
@@ -54,6 +60,22 @@ class Channel:
         return int(self.center_frequency).to_bytes(4, byteorder="little")
 
 
+WindowCache = Dict[Tuple[int, torch.device], torch.Tensor]
+
+
+def _extract_one(spectrum: torch.Tensor, shift: int, bandwidth: int,
+                 routes: Optional[Routes],
+                 windows: WindowCache) -> torch.Tensor:
+    """One channel of ``run(i)``: roll, the fftshift'd hann window (copied
+    to the device once per size, into ``windows``), resample."""
+    key = (int(spectrum.shape[-1]), spectrum.device)
+    if key not in windows:
+        windows[key] = torch.from_numpy(np.fft.fftshift(
+            design.window("hann", key[0])).astype(np.float32)).to(key[1])
+    rolled = torch.roll(spectrum, shift)
+    return resample_spectrum(rolled * windows[key], bandwidth, routes)
+
+
 class Tuner:
     """Runs on ``device`` (the first CUDA device when None); ``cuda`` is
     kept for the reference's signature. ``routes`` (None: the defaults)
@@ -70,7 +92,16 @@ class Tuner:
         self._input_frequency: float = 0.0
         self._input_bandwidth: float = 0.0
         self._spectrum: Optional[torch.Tensor] = None
-        self._win_cache: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+        self._win_cache: WindowCache = {}
+        windows = self._win_cache
+        self._band_fft = compile_step(lambda x: _fft.fft(x, routes),
+                                      self._device)
+        self._run_one = compile_step(
+            lambda s, shift, bw: _extract_one(s, shift, bw, routes, windows),
+            self._device)
+        # The compiled extractor of run_all, with the plan it serves.
+        self._extract_all: Tuple[Optional[tuple], Optional[Callable]] = (
+            None, None)
 
     # ---- band plan -------------------------------------------------------
 
@@ -141,17 +172,9 @@ class Tuner:
 
     def load(self, input_signal) -> None:
         """FFT the full-band 1-second chunk (reference: tuner.py:126-138).
-        A tensor already on the device as complex64 is not copied."""
-        self._spectrum = _fft.fft(to_device_c64(input_signal, self._device),
-                                  self._routes)
-
-    def _window(self, n: int) -> torch.Tensor:
-        key = (n, self._device)
-        if key not in self._win_cache:
-            self._win_cache[key] = torch.from_numpy(
-                np.fft.fftshift(design.window("hann", n)).astype(
-                    np.float32)).to(self._device)
-        return self._win_cache[key]
+        A tensor already on the device as complex64 is taken as it is."""
+        self._spectrum = self._band_fft(to_device_c64(input_signal,
+                                                      self._device))
 
     def run(self, channel_index: int) -> torch.Tensor:
         """Extract one channel's baseband IQ (parity path).
@@ -163,10 +186,8 @@ class Tuner:
         if self._spectrum is None:
             raise ValueError("load() must be called before run()")
         ch = self._channels[int(channel_index)]
-        n = self._spectrum.shape[-1]
-        rolled = torch.roll(self._spectrum, self._shift(ch))
-        return resample_spectrum(rolled * self._window(n), int(ch.bandwidth),
-                                 self._routes)
+        return self._run_one(self._spectrum, self._shift(ch),
+                             int(ch.bandwidth))
 
     def run_all(self) -> torch.Tensor:
         """Extract ALL channels at once → ``(n_channels, bandwidth)`` c64.
@@ -181,6 +202,10 @@ class Tuner:
             raise ValueError("run_all requires equal channel bandwidths; "
                              "use run(i) for heterogeneous plans")
         n = int(self._spectrum.shape[-1])
-        shifts = tuple(self._shift(ch) for ch in self._channels)
-        extract = make_extractor(n, shifts, bws.pop(), self._routes)
-        return extract(self._spectrum).to(torch.complex64)
+        plan = (n, tuple(self._shift(ch) for ch in self._channels),
+                bws.pop())
+        if self._extract_all[0] != plan:
+            extract = make_extractor(*plan, self._routes)
+            self._extract_all = (plan, compile_step(
+                lambda s: extract(s).to(torch.complex64), self._device))
+        return self._extract_all[1](self._spectrum)

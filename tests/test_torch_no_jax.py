@@ -63,6 +63,7 @@ def test_every_module_imports_without_jax():
             "radiocore_tpu_torch.parallel.dryrun",
             "radiocore_tpu_torch.runtime.platform",
             "radiocore_tpu_torch.runtime.routes",
+            "radiocore_tpu_torch.runtime.graphs",
             "radiocore_tpu_torch.tools.acceptance"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
