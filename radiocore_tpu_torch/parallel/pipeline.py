@@ -54,6 +54,7 @@ from radiocore_tpu_torch.parallel.mesh import (FLAT, RadioMesh,
                                                station_sharding)
 from radiocore_tpu_torch.runtime.graphs import compile_step
 from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.profiling import span
 from radiocore_tpu_torch.runtime.routes import Routes, resolve
 
 State = Dict[str, torch.Tensor]
@@ -99,6 +100,10 @@ def make_multi_station_step(
     ``step.stages`` holds the three stages that ``step`` chains, for
     per-stage timing: ``band_fft``, ``extract`` and ``demod_tail`` for
     ``"off"``; ``band_fft``, ``extract_demod`` and ``tail`` otherwise.
+    The step wraps each in a ``runtime.profiling`` span of its key: with
+    tracing on, a host span in an eager step; in a captured one, a pair
+    of timing events in the graph inside ``profiling.tracing()``, and
+    nothing under a profile alone.
 
     On one CUDA device the step is compiled (``runtime/graphs``): captured
     once per input signature as a CUDA graph, replayed for each chunk, and
@@ -215,11 +220,16 @@ def make_multi_station_step(
         stages = {"band_fft": band_fft, "extract_demod": xdemod,
                   "tail": xtail}
 
-    first, middle, last = stages.values()
+    (n1, first), (n2, middle), (n3, last) = stages.items()
 
     def step(band_iq: torch.Tensor, state: State
              ) -> Tuple[torch.Tensor, State]:
-        return last(middle(first(band_iq)), state)
+        with span(n1):
+            x = first(band_iq)
+        with span(n2):
+            x = middle(x)
+        with span(n3):
+            return last(x, state)
 
     step.stages = stages
     state0 = wbfm_init_state(audio_chunk, deemphasis,
@@ -274,7 +284,10 @@ def _mesh_step(mesh: RadioMesh, n_band: int, shifts: Tuple[int, ...],
 
     def step(band_block: torch.Tensor, state: State
              ) -> Tuple[torch.Tensor, State]:
-        return demod_tail(front_end(band_block), state)
+        with span("front_end"):
+            x = front_end(band_block)
+        with span("demod_tail"):
+            return demod_tail(x, state)
 
     step.stages = {"front_end": front_end, "demod_tail": demod_tail}
     step.distributed = body is not None

@@ -43,6 +43,20 @@ Two things a replay would otherwise lose:
   :func:`hold` (:func:`device_cache` does it for an ``lru_cache``), which
   during a capture appends them to the graph's keep-list: an evicted
   entry then stays alive for as long as the graph that reads it.
+
+With tracing on (``runtime/profiling``) a call is traced: it records the
+span ``step``, whose id is the call's number among this step's traced
+calls, with ``step.copy_in``, ``step.replay`` and ``step.clone_out``
+inside it, and ``step.capture`` around the warm-up and capture of a call
+that builds a graph. Under a ``torch.profiler`` profile alone that is
+all, and the graph replayed is the untraced one. Inside
+``profiling.tracing()`` a call also records four timing events on the
+current stream (``profiling.CallEvents``, resolved only when the recorder
+reports), and the signature includes it, so the first such call captures
+a traced variant of the graph, in which the body's spans are timing
+events: a one-time warm-up and capture, and a second graph's memory,
+while the untraced graph stays as it was. With tracing off a call reads
+the flag and does nothing else of this.
 """
 
 from __future__ import annotations
@@ -55,6 +69,7 @@ from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional
 import torch
 
 from radiocore_tpu_torch.kernels.fft_rows import COUNTERS, LaunchCounter
+from radiocore_tpu_torch.runtime import profiling
 
 WARMUP_RUNS = 3
 
@@ -168,6 +183,10 @@ class CudaGraphs:
     def replay(graph) -> None:
         graph.replay()
 
+    @staticmethod
+    def timing_event():
+        return torch.cuda.Event(enable_timing=True)
+
 
 @dataclasses.dataclass
 class _Graph:
@@ -194,6 +213,8 @@ class Step:
         # Static input buffers by leaf position and signature, shared by
         # the graphs of every signature that has such a leaf there.
         self._buffers: Dict[Hashable, torch.Tensor] = {}
+        self._traced_calls = 0
+        self._call_events: Optional[profiling.CallEvents] = None
 
     @property
     def graph_count(self) -> int:
@@ -201,23 +222,65 @@ class Step:
         return len(self._graphs)
 
     def __call__(self, *args):
+        if profiling.on():
+            return self._traced_call(args)
         if self._backend is None:
             return self.eager(*args)
+        entry, leaves = self._entry(args, False)
+        _copy_in(entry, leaves)
+        self._replay(entry)
+        return _clone_out(entry)
+
+    def _traced_call(self, args):
+        """A call with tracing on (module docstring)."""
+        self._traced_calls += 1
+        n = self._traced_calls
+        with profiling.span("step", n):
+            if self._backend is None:
+                return self.eager(*args)
+            timed = profiling.timed()
+            entry, leaves = self._entry(args, timed)
+            ring = self._ring() if timed else None
+            if ring is not None:
+                ring.mark(n, 0)
+            with profiling.span("step.copy_in"):
+                _copy_in(entry, leaves)
+            if ring is not None:
+                ring.mark(n, 1)
+            with profiling.span("step.replay"):
+                self._replay(entry)
+            if ring is not None:
+                ring.mark(n, 2)
+            with profiling.span("step.clone_out"):
+                out = _clone_out(entry)
+            if ring is not None:
+                ring.mark(n, 3)
+            return out
+
+    def _ring(self) -> profiling.CallEvents:
+        """This step's ring of call events, made on its first timed
+        call."""
+        if self._call_events is None:
+            self._call_events = profiling.CallEvents(
+                self._backend.timing_event)
+        return self._call_events
+
+    def _entry(self, args, timed: bool):
+        """The graph for ``args``' signature, captured on first sight, and
+        the arguments' leaves."""
         leaves: List[Any] = []
         struct = _flatten(args, leaves)
-        key = (struct, tuple(_leaf_key(x) for x in leaves))
+        key = (timed, struct, tuple(_leaf_key(x) for x in leaves))
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._graphs[key] = self._capture(struct, leaves)
-        for buf, leaf in zip(entry.inputs, leaves):
-            if buf is not None:
-                buf.copy_(leaf)
+            with profiling.span("step.capture"):
+                entry = self._graphs[key] = self._capture(struct, leaves)
+        return entry, leaves
+
+    def _replay(self, entry: _Graph) -> None:
         self._backend.replay(entry.graph)
         for counter, made in entry.launches.items():
             counter.count += made
-        return _unflatten(entry.out_struct, iter(
-            x.clone() if isinstance(x, torch.Tensor) else x
-            for x in entry.out_leaves))
 
     def _buffer(self, i: int, leaf: torch.Tensor) -> torch.Tensor:
         if leaf.device != self.device:
@@ -256,6 +319,18 @@ class Step:
         return _Graph(graph, inputs, out_struct, out_leaves,
                       {c: n - warm.get(c, 0) for c, n in captured.items()
                        if n != warm.get(c, 0)}, keep)
+
+
+def _copy_in(entry: _Graph, leaves: List[Any]) -> None:
+    for buf, leaf in zip(entry.inputs, leaves):
+        if buf is not None:
+            buf.copy_(leaf)
+
+
+def _clone_out(entry: _Graph):
+    return _unflatten(entry.out_struct, iter(
+        x.clone() if isinstance(x, torch.Tensor) else x
+        for x in entry.out_leaves))
 
 
 def compile_step(fn: Callable, device: torch.device | str) -> Step:

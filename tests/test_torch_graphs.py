@@ -34,8 +34,31 @@ PLAN = (4, 65_536, 16_384)
 FS, AUDIO = 100_000, 20_000
 
 
+class FakeEvent:
+    """A timing event on a clock that each record advances by one."""
+
+    now = 0.0
+
+    def __init__(self):
+        self.t = None
+
+    def record(self, stream=None):
+        FakeEvent.now += 1.0
+        self.t = FakeEvent.now
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        if self.t is None or other.t is None:
+            raise RuntimeError("event not recorded")
+        return other.t - self.t
+
+
 class StubGraphs:
-    """Stands in for :class:`runtime.graphs.CudaGraphs` on the CPU."""
+    """Stands in for :class:`runtime.graphs.CudaGraphs` on the CPU; its
+    timing events are :class:`FakeEvent`, and a replay takes ten units of
+    their clock."""
 
     def __init__(self):
         self.captures = 0
@@ -53,6 +76,7 @@ class StubGraphs:
     def replay(self, graph):
         run, out = graph
         self.replays += 1
+        FakeEvent.now += 10.0
         counts = graphs.launch_counts()
         new = run()
         graphs._set_counts(counts)
@@ -62,6 +86,10 @@ class StubGraphs:
         for k, f in zip(kept, fresh):
             if isinstance(k, torch.Tensor):
                 k.copy_(f)
+
+    @staticmethod
+    def timing_event():
+        return FakeEvent()
 
 
 def _stub_step(fn):
