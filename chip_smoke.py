@@ -23,7 +23,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    generator, checks that every kernel launched, and compares chunk 1
    with the same port run on the CPU;
 4. decodes one real FM stereo station (440 Hz left, 1 kHz right) placed
-   in a 2^24 band and checks both tones' SNR;
+   in a 2^24 band and checks both tones' SNR; then runs K-GATHER at the
+   benchmark's wbfm24 plan (24 stations of 240 000 points in a 10^7-bin
+   spectrum) against its plain version in complex128, times it and the
+   torch reorder it replaces (device time after an L2 flush) beside its
+   bound, times the extraction stage as a CUDA graph under ``auto`` and
+   ``native``, and counts its launches a step of the ``off`` step in
+   ``fast`` and ``exact`` (one each, no K-EXTRACT);
 5. runs K-MIXED (the 24M = 96 · 2^18 band FFT, with its column pass and
    its row passes also timed apart), K-EXTRACT on that band, K-XDEMOD and
    K-XDEMOD-SPEC against their plain versions at the 96-station shapes,
@@ -225,6 +231,12 @@ NCO_WILD = 5          # a row started 8 turns away (about -+50 rad)
 FAST_EXACT_MIN_DB = 40.0   # fast against exact audio on a real station
 
 # Published peaks of one H100 SXM: the yardstick of each kernel's bound.
+# The plan of the benchmark's cells (portbench/configs/wbfm24_*.json): 24
+# stations of 240 000 S/s, 400 kHz apart, symmetric about the centre of a
+# 10 MS/s band; not a uniform power-of-two plan, so K-GATHER extracts it.
+W24_BAND, W24_STATION, W24_AUDIO = 10_000_000, 240_000, 48_000
+W24_OFFSETS = tuple((2 * i - 23) * 200_000 for i in range(24))
+W24_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
@@ -251,6 +263,9 @@ KERNELS = {
                  "radiocore_tpu/kernels/extract_demod_pallas.py:153"),
     "K-XDEMOD-SPEC": ("radiocore_tpu_torch/csrc/extract_demod.cu",
                       "radiocore_tpu/kernels/extract_demod_pallas.py:278"),
+    # Replaces the reference's per-slice lowering, not a TPU kernel.
+    "K-GATHER": ("radiocore_tpu_torch/csrc/extract_gather.cu",
+                 "radiocore_tpu/ops/channelize.py:167"),
     # Replaces a lax.scan, not a TPU kernel.
     "K-NCO": ("radiocore_tpu_torch/csrc/nco_pll.cu",
               "radiocore_tpu/ops/nco_pll.py:53"),
@@ -714,6 +729,107 @@ def check_fir(device, gen, alone=None) -> dict:
         if not err <= FIR_ABS_MAX:
             raise AssertionError(f"K-FIR on the strided ragged shape: {err}")
     return stats
+
+
+def check_gather(device, gen) -> tuple:
+    """K-GATHER at the wbfm24 plan: against its plain version in
+    complex128; its device time and the torch reorder's (the ``native``
+    route's gathers, window, fold, stack and divide), each call after a
+    flush of the L2, beside the bound; the extraction stage (``auto``
+    against ``native``) as CUDA graphs; and its launches a step of the
+    ``off`` step in both modes, replayed. Returns its stats and its
+    launches a ``fast`` step."""
+    import torch
+    from radiocore_tpu_torch.kernels import extract
+    from radiocore_tpu_torch.ops.channelize import (extraction_plan,
+                                                    make_extractor)
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    from radiocore_tpu_torch.runtime import Routes
+    n, m = W24_BAND, W24_STATION
+    shifts = tuple(-o for o in W24_OFFSETS)
+    c = len(shifts)
+    spec = crandn(gen, device, n)
+    auto = make_extractor(n, shifts, m)
+    native = make_extractor(n, shifts, m, Routes(extract_ifft="native"))
+    got = auto.gather(spec)
+    starts, w_out, w_fix, _, _ = extraction_plan(n, shifts, m)
+    ref = extract.extract_gather_plain(
+        spec.to(torch.complex128),
+        torch.tensor(starts, dtype=torch.int64, device=device),
+        torch.from_numpy(w_out.astype("float64") / n).to(device),
+        float(w_fix) / n)
+    err, max_err = rel_l2(got, ref), max_abs(got, ref)
+    reorder_err = rel_l2(native.reorder(spec), ref)
+    del ref
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    flushing = {name for name, _ in kernel_times_ms(flush.zero_)}
+
+    def device_ms(fn):
+        times = kernel_times_ms(lambda: (flush.zero_(), fn()))
+        return [(name, ms) for name, ms in times if name not in flushing]
+
+    gather = device_ms(lambda: auto.gather(spec))
+    ms = sum(t for name, t in gather if "gather_kernel" in name)
+    if len(gather) != 1 or not ms:
+        raise AssertionError(f"K-GATHER: kernels {gather}")
+    reorder = device_ms(lambda: native.reorder(spec))
+    reorder_ms = sum(t for _, t in reorder)
+    plain = time_ms(lambda: extract.extract_gather_plain(
+        spec, torch.tensor(starts, dtype=torch.int64, device=device),
+        torch.from_numpy(w_out.astype("float64") / n).float().to(device),
+        float(w_fix) / n))
+    least = bound(16 * c * m, 0.0)
+    report(f"K-GATHER {c}x{m} in {n} rel_l2", err, REL_L2_MAX, ms, plain,
+           least)
+    print(f"[kernel] K-GATHER against the torch reorder: {ms:.4f} ms "
+          f"(1 kernel) against {reorder_ms:.4f} ms ({len(reorder)} "
+          f"kernels), device time after an L2 flush; the torch reorder's "
+          f"rel_l2 {reorder_err:.3e}")
+    stage = {}
+    for name, ext in (("auto", auto), ("native", native), ("auto2", auto),
+                      ("native2", native)):
+        stage[name] = time_min_median_ms(_graphed(lambda: ext(spec)))[1]
+    print("[kernel] K-GATHER extraction stage as a CUDA graph (median of "
+          "50): " + ", ".join(f"{k} {v:.4f} ms" for k, v in stage.items()))
+    del flush, spec, got
+    band = crandn(gen, device, n)
+    per_step = {}
+    for mode in ("fast", "exact"):
+        step, state = make_multi_station_step(
+            n, W24_OFFSETS, m, W24_AUDIO, mode=mode, device=device)
+        step(band, state)
+        torch.cuda.synchronize()
+        before = extract.gather_launches.count, extract.launches.count
+        for _ in range(W24_STEPS):
+            _, state = step(band, state)
+        torch.cuda.synchronize()
+        per_step[mode] = (
+            (extract.gather_launches.count - before[0]) / W24_STEPS,
+            (extract.launches.count - before[1]) / W24_STEPS)
+        del step, state
+    print(f"[kernel] K-GATHER launches a step of the off step at the wbfm24 "
+          f"plan (K-GATHER, K-EXTRACT): {per_step}")
+    if any(v != (1.0, 0.0) for v in per_step.values()):
+        raise AssertionError(f"K-GATHER: launches a step {per_step}")
+    return (dict(max_abs_err=max_err, ms=ms, plain_ms=plain, **least,
+                 library_ms=None, reorder_ms=reorder_ms, stage_ms=stage),
+            int(per_step["fast"][0]))
+
+
+def _graphed(fn):
+    """``fn`` captured once as a CUDA graph (after three warm-up calls
+    on a side stream); the graph's replay."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
 
 
 def check_band_kernels(device, gen) -> dict:
@@ -1835,7 +1951,8 @@ def kernel_counters() -> dict:
     return {"K-FFT": fft_rows.launches,
             **{f"K-FFT {e}": c for e, c in fft_rows.entry_launches.items()},
             "K-MIXED": fft_mixed.launches, "K-EXTRACT": extract.launches,
-            "K-XDEMOD": xd.launches, "K-XDEMOD-SPEC": xd.spec_launches,
+            "K-GATHER": extract.gather_launches, "K-XDEMOD": xd.launches,
+            "K-XDEMOD-SPEC": xd.spec_launches,
             "K-FIR": fir.launches, "K-NCO": nco_pll.launches}
 
 
@@ -2454,19 +2571,19 @@ def check_synth(device) -> None:
 
 # Phase 18, [config5]: the config-5 rehearsal of tests/test_config5.py,
 # 128 stations of 50 000 S/s to 10 000 audio samples in a 6.4 M band of
-# SyntheticFmSource stations. 50 000 is not a power of two: the plain
-# extraction and cuFFT serve the plan. K-FIR takes the exact mode's pilot
-# filter (forward and backward); the de-emphasis of 10 000 samples is
-# below K-FIR's 16 384-sample minimum (the reference's rule), so it runs
-# its plain version, and the fast mode launches no kernel.
+# SyntheticFmSource stations. 50 000 is not a power of two: K-GATHER (one
+# launch a step) and cuFFT serve the plan. K-FIR takes the exact mode's
+# pilot filter (forward and backward); the de-emphasis of 10 000 samples
+# is below K-FIR's 16 384-sample minimum (the reference's rule), so it
+# runs its plain version.
 C5_STATIONS, C5_STATION, C5_AUDIO = 128, 50_000, 10_000
 C5_BAND = C5_STATIONS * C5_STATION
 C5_SLOTS = (0, 64, 127)
 C5_TONE_MIN_DB = 6.0          # tests/test_config5.py:69-75
 C5_FIR_PER_STEP = {"exact": 2, "fast": 0}
-C5_ROUTE = ("50 000 is not a power of two: the plain extraction and "
-            "cuFFT; K-FIR for the exact pilot filter, the 10 000-sample "
-            "de-emphasis below K-FIR's minimum length")
+C5_ROUTE = ("50 000 is not a power of two: K-GATHER and cuFFT; K-FIR "
+            "for the exact pilot filter, the 10 000-sample de-emphasis "
+            "below K-FIR's minimum length")
 
 
 def config5_band():
@@ -2495,7 +2612,8 @@ def config5_tones(audio, tones) -> dict:
 
 def check_config5(device, card: str) -> None:
     """The config-5 plan in one process on the card, ``exact`` and
-    ``fast``: launches (``C5_FIR_PER_STEP`` K-FIR, no other kernel), audio
+    ``fast``: launches (``C5_FIR_PER_STEP`` K-FIR, one K-GATHER, no
+    other kernel), audio
     against the port on the CPU, the tones of three stations, the step
     time."""
     import torch
@@ -2504,7 +2622,8 @@ def check_config5(device, card: str) -> None:
     band_np, offs, tones = config5_band()
     band = torch.from_numpy(band_np).to(device)
     counters = {"K-FFT": fft_rows.launches, "K-MIXED": fft_mixed.launches,
-                "K-EXTRACT": extract.launches, "K-FIR": fir.launches}
+                "K-EXTRACT": extract.launches,
+                "K-GATHER": extract.gather_launches, "K-FIR": fir.launches}
     for mode, fir_per_step in C5_FIR_PER_STEP.items():
         step, state = make_multi_station_step(
             C5_BAND, offs, C5_STATION, C5_AUDIO, mode=mode, device=device)
@@ -2532,7 +2651,7 @@ def check_config5(device, card: str) -> None:
               + f" (bound {C5_TONE_MIN_DB:.0f} dB); "
               f"{step_ms(step, band, state)}; {card}")
         if launches != {"K-FFT": 0, "K-MIXED": 0, "K-EXTRACT": 0,
-                        "K-FIR": fir_per_step}:
+                        "K-GATHER": 1, "K-FIR": fir_per_step}:
             raise AssertionError(f"config 5 {mode}: launches {launches}")
         if not err <= E2E_ABS_MAX:
             raise AssertionError(f"config 5 {mode}: card and CPU audio "
@@ -2613,7 +2732,7 @@ def parallel_rank(rank: int, label: str) -> None:
     shifts = tuple(-o for o in offs)
     bands = [fm_band(gen, c, sc, device) for _ in range(PAR_CHUNKS)]
     counters = {"K-FFT": fft_rows.launches, "K-EXTRACT": extract.launches,
-                "K-FIR": fir.launches}
+                "K-GATHER": extract.gather_launches, "K-FIR": fir.launches}
     mine = station_sharding(mesh, c)
 
     def run_steps(step, state, chunks):
@@ -2717,7 +2836,11 @@ def parallel_rank(rank: int, label: str) -> None:
               + ", ".join(f"station {i} {l:.1f} / {r:.1f} dB"
                           for i, (l, r) in snr.items())
               + f" ({label})", flush=True)
-        if launches != {"K-FFT": 0, "K-EXTRACT": 0, "K-FIR": fir_per_step}:
+        # The all-gather branch extracts this rank's stations with
+        # K-GATHER; the distributed front end has its own extraction.
+        gathers = 0 if step.distributed else 1
+        if launches != {"K-FFT": 0, "K-EXTRACT": 0, "K-GATHER": gathers,
+                        "K-FIR": fir_per_step}:
             raise AssertionError(f"config 5 {mode}: launches {launches}")
         against_one_process(f"config 5 {mode}", mode, offs5, [band5],
                             audios, plan5)
@@ -2935,6 +3058,11 @@ def main(argv=()) -> int:
         check_station("station", step, N_STATIONS, device)
         lap("main path and station")
 
+    def phase_gather():
+        # K-GATHER at the benchmark's wbfm24 plan.
+        kstats["K-GATHER"], launches["K-GATHER"] = check_gather(device, gen)
+        lap("K-GATHER at the wbfm24 plan")
+
     def phase_band():
         # Phase 5: the 96-station kernels against their plain versions.
         kstats.update(check_band_kernels(device, gen))
@@ -3047,7 +3175,7 @@ def main(argv=()) -> int:
         check_synth(device)
         lap("[native] and [synth]")
 
-    for run_phase in (phase_main, phase_band, phase_dead, phase_paths96,
+    for run_phase in (phase_main, phase_gather, phase_band, phase_dead, phase_paths96,
                       phase_nco, phase_firpilot, phase_exact, phase_ncopath,
                       phase_classes, phase_deadstep, phase_routes,
                       phase_graphs, phase_apps, phase_acceptance,

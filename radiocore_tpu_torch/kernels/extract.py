@@ -13,8 +13,15 @@ lanes with a G-station scratch each that the lane's next group
 overwrites, so the scratch stays in the card's L2 and kernels of
 neighbouring groups overlap.
 
+K-GATHER (``csrc/extract_gather.cu``, :func:`extract_gather`) is the
+extraction's reorder for any other plan: every station's run gathered in
+place (mod n) into the output order of ``ops/channelize``'s reorder,
+windowed, scaled and with the even-m fix bin folded, in one launch. The
+inverse transform follows it as a library call, unnormalized: the
+extractor folds the whole scale into the window.
+
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs
-:func:`extract_rows_plain`.
+:func:`extract_rows_plain` or :func:`extract_gather_plain`.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ LOAD_STRIDED, LOAD_EXTRACT = 0, 1
 STORE_STRIDED, STORE_FLIP = 0, 1
 
 launches = LaunchCounter()
+gather_launches = LaunchCounter()   # K-GATHER
 
 # The grouped schedule (measured on an H100, PERF.md): the passes run per
 # group of G stations, the groups dealt in turn over LANES streams with a
@@ -210,3 +218,86 @@ def extract_rows(spectrum: torch.Tensor, a0: int, c: int, m: int,
     if spectrum.device.type != "cpu":
         raise ValueError(f"extract_rows: no kernel for {spectrum.device}")
     return extract_rows_plain(spectrum, a0, c, m, s_norm)
+
+
+def gather_ok(n: int, m: int) -> bool:
+    """Whether K-GATHER takes a plan of ``m``-point stations in ``n``
+    bins: a station's run (``m`` bins, and the fix bin for an even m)
+    fits the spectrum once."""
+    return 1 <= m <= n - (1 - m % 2)
+
+
+def extract_gather_plain(spectrum: torch.Tensor, starts: torch.Tensor,
+                         window: torch.Tensor,
+                         fix: Optional[float]) -> torch.Tensor:
+    """Plain version: ``spectrum (..., n) → (..., C, m)``, each station's
+    bins gathered by index, times ``window`` (``m`` points, output order,
+    scale folded in); an even m adds the fix bin (run bin 0) times
+    ``fix`` to output ``m//2``. Output j is run bin ``lead + neg + j``
+    for ``j < m2`` and ``lead + j − m2`` after (``m2 = m//2 + 1``,
+    ``neg = m − m2``, ``lead`` = 1 for an even m: the fix bin)."""
+    n = int(spectrum.shape[-1])
+    m = int(window.shape[-1])
+    m2 = m // 2 + 1
+    j = torch.arange(m, device=starts.device)
+    off = (1 - m % 2) + torch.where(j < m2, m - m2 + j, j - m2)
+    y = spectrum[..., (starts[:, None] + off) % n] * window
+    if m % 2 == 0:
+        y[..., m // 2] += spectrum[..., starts] * fix
+    return y
+
+
+def _gather_kernel(spectrum: torch.Tensor, starts: torch.Tensor,
+                   window: torch.Tensor, fix: Optional[float]
+                   ) -> torch.Tensor:
+    from radiocore_tpu_torch.kernels import build
+    if spectrum.dtype != torch.complex64 or window.dtype != torch.float32:
+        raise TypeError(f"extract_gather: kernel takes a complex64 spectrum "
+                        f"and a float32 window, got {spectrum.dtype} and "
+                        f"{window.dtype}")
+    if not spectrum.is_contiguous():
+        raise ValueError("extract_gather: kernel takes a contiguous spectrum")
+    if (starts.dtype != torch.int64 or not starts.is_contiguous()
+            or not window.is_contiguous()):
+        raise ValueError("extract_gather: kernel takes contiguous int64 "
+                         "starts and a contiguous window")
+    n = int(spectrum.shape[-1])
+    m = int(window.shape[-1])
+    c = int(starts.shape[0])
+    lead = spectrum.shape[:-1]
+    batch = spectrum.numel() // n
+    y = torch.empty(lead + (c, m), dtype=torch.complex64,
+                    device=spectrum.device)
+    err = build.library().rc_extract_gather(
+        spectrum.data_ptr(), y.data_ptr(), starts.data_ptr(),
+        window.data_ptr(), n, batch, c, m, float(fix or 0.0),
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"rc_extract_gather(n={n}, m={m}, c={c})")
+    gather_launches.count += 1
+    return y
+
+
+def extract_gather(spectrum: torch.Tensor, starts: torch.Tensor,
+                   window: torch.Tensor,
+                   fix: Optional[float] = None) -> torch.Tensor:
+    """The extraction's reorder for any plan: ``spectrum (..., n) →
+    (..., C, m)``, station c's run from bin ``starts[c]`` (``(C,)``
+    int64 on the spectrum's device) in ``make_extractor``'s output order,
+    times ``window`` (``(m,)`` float32 there, the scale folded in), and
+    for an even m the fix bin times ``fix``. K-GATHER for a CUDA tensor,
+    :func:`extract_gather_plain` for a CPU one."""
+    n = int(spectrum.shape[-1])
+    m = int(window.shape[-1])
+    if not gather_ok(n, m):
+        raise ValueError(f"extract_gather: {m}-point stations do not fit "
+                         f"{n} bins")
+    if (m % 2 == 0) != (fix is not None):
+        raise ValueError(f"extract_gather: an even m takes a fix weight, "
+                         f"an odd one none (m={m}, fix={fix})")
+    if starts.dim() != 1 or starts.shape[0] < 1:
+        raise ValueError("extract_gather: starts must be (C,), C >= 1")
+    if spectrum.is_cuda:
+        return _gather_kernel(spectrum, starts, window, fix)
+    if spectrum.device.type != "cpu":
+        raise ValueError(f"extract_gather: no kernel for {spectrum.device}")
+    return extract_gather_plain(spectrum, starts, window, fix)

@@ -10,15 +10,22 @@ IFFT. ``routes.extract_ifft`` picks the lowering, as the reference's
 
 - ``auto``: a plan whose runs tile the band uniformly goes, for a 1-D
   CUDA spectrum that ``extract_ok`` accepts, to K-EXTRACT
-  (``kernels/extract.py``); anything else as ``native``;
-- ``fused``: the same on either device (K-EXTRACT's plain version for a
-  CPU spectrum);
+  (``kernels/extract.py``); any other plan on a complex64 CUDA
+  spectrum (any spacing, any m, batched spectra too) to K-GATHER, the
+  reorder in one launch with the whole scale 1/n folded into its window,
+  then ``ops.fft.ifft_unscaled`` (``ifft``'s route without its
+  normalization pass); a CPU spectrum as ``native``;
+- ``fused``: the same, and K-EXTRACT's plain version for a CPU spectrum
+  whose plan it takes;
 - ``pallas``: the reorder in torch, then K-FFT's ``fft_pow2`` backward
   with the whole scale ``1/(s_fac·m)`` folded into its input, when m is
   a power of two in ``[MIN_ROW, MAX_ROW]`` (its plain version on the
   CPU); ``native`` otherwise;
 - ``fourstep``: the reorder, then ``ops.fft.ifft_decomposed``;
 - ``native``: the reorder, then ``ops.fft.ifft``.
+
+The reorder in torch (``native``, ``fourstep``, ``pallas``, and every
+CPU spectrum) is K-GATHER's counterpart on the card.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ import numpy as np
 import torch
 
 from radiocore_tpu_torch.kernels import fft_rows
-from radiocore_tpu_torch.kernels.extract import extract_ok, extract_rows
+from radiocore_tpu_torch.kernels.extract import (extract_gather, extract_ok,
+                                                 extract_rows, gather_ok)
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops import fft as _fft
 from radiocore_tpu_torch.ops.consts import HostConst
@@ -80,10 +88,12 @@ def make_extractor(n: int, shifts: Sequence[int], bandwidth: int,
                    ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``spectrum (..., n) → channels (..., C, bandwidth)``.
 
-    Two lowerings: the uniform one (all runs are one rolled spectrum
-    reshaped ``(C, m)``) and one static slice per channel otherwise; the
-    inverse transform by ``routes.extract_ifft`` (module docstring).
-    Built once per plan and routes: two routes give two extractors.
+    The reorder by K-EXTRACT, K-GATHER or torch, and the inverse
+    transform, by ``routes.extract_ifft`` (module docstring). Built once
+    per plan and routes: two routes give two extractors. The extractor's
+    ``reorder`` and ``gather`` attributes give the torch reorder and
+    K-GATHER's, each ``(..., C, m)`` times the whole scale 1/n, the
+    input of an unnormalized inverse.
     """
     return _extractor(int(n), tuple(int(s) for s in shifts), int(bandwidth),
                       resolve(routes))
@@ -98,7 +108,15 @@ def _extractor(n: int, shifts: Tuple[int, ...], m: int,
     s_fac = n / m
     w_c = HostConst(w_out)
     fix = float(w_fix) if w_fix is not None else None
+    # K-GATHER's constants: the starts, and the window and fix weight with
+    # the whole scale 1/n (1/s_fac and the inverse's 1/m) folded in,
+    # rounded once from float64.
+    starts_c = HostConst(np.asarray(starts, np.int64))
+    wg_c = HostConst((w_out.astype(np.float64) / n).astype(np.float32))
+    fix_g = (float(np.float32(np.float64(w_fix) / n))
+             if w_fix is not None else None)
     impl = routes.extract_ifft
+    uniform = _is_uniform(n, starts, m)
     row = ((m & (m - 1)) == 0
            and fft_rows.MIN_ROW <= m <= fft_rows.MAX_ROW)
 
@@ -114,11 +132,24 @@ def _extractor(n: int, shifts: Tuple[int, ...], m: int,
 
     def kernel_ok(spectrum: torch.Tensor) -> bool:
         """K-EXTRACT takes the plan (or its plain version on the CPU)."""
-        if impl not in ("auto", "fused") or m % 2 or spectrum.dim() != 1:
+        if (not uniform or impl not in ("auto", "fused") or m % 2
+                or spectrum.dim() != 1):
             return False
         if impl == "auto" and not spectrum.is_cuda:
             return False
         return extract_ok(n, m, c)
+
+    def gather_route(spectrum: torch.Tensor) -> bool:
+        """K-GATHER takes every other plan on a complex64 CUDA spectrum."""
+        return (impl in ("auto", "fused") and spectrum.is_cuda
+                and spectrum.dtype == torch.complex64 and gather_ok(n, m))
+
+    def gather_rows(spectrum: torch.Tensor) -> torch.Tensor:
+        """K-GATHER: every station's windowed run times 1/n, (..., C, m),
+        ready for the unnormalized inverse."""
+        dev = spectrum.device
+        return extract_gather(spectrum.contiguous(), starts_c.on(dev),
+                              wg_c.on(dev), fix_g)
 
     def reorder(sl: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Run ``sl`` (..., run) in raw order → windowed output order."""
@@ -130,24 +161,36 @@ def _extractor(n: int, shifts: Tuple[int, ...], m: int,
             y = torch.cat([sl[..., neg:m], sl[..., :neg]], dim=-1) * w
         return y
 
-    def extract_uniform(spectrum: torch.Tensor) -> torch.Tensor:
-        a0 = starts[0]
-        if kernel_ok(spectrum):
-            return extract_rows(spectrum.contiguous(), a0, c, m,
-                                1.0 / (s_fac * m))
-        base = torch.cat([spectrum[..., a0:], spectrum[..., :a0],
-                          spectrum[..., a0:a0 + 1]], dim=-1)[..., :c * m + 1]
-        rows = base[..., :c * m].reshape(spectrum.shape[:-1] + (c, m))
-        # Element ``m`` of each run is the next row's first element.
-        nxt = torch.cat([rows[..., 1:, :1], base[..., -1:].unsqueeze(-2)],
-                        dim=-2)
-        return finish(reorder(torch.cat([rows, nxt], dim=-1),
-                              w_c.on(spectrum.device)))
-
-    def extract_slices(spectrum: torch.Tensor) -> torch.Tensor:
-        ext = torch.cat([spectrum, spectrum[..., :run]], dim=-1)
+    def reorder_rows(spectrum: torch.Tensor) -> torch.Tensor:
+        """The reorder in torch: every station's windowed run, unscaled.
+        A uniform plan's runs are one rolled spectrum reshaped ``(C, m)``;
+        otherwise one static slice per station of a wrapped copy."""
         w = w_c.on(spectrum.device)
-        rows = [reorder(ext[..., a0:a0 + run], w) for a0 in starts]
-        return finish(torch.stack(rows, dim=-2))
+        if uniform:
+            a0 = starts[0]
+            base = torch.cat([spectrum[..., a0:], spectrum[..., :a0],
+                              spectrum[..., a0:a0 + 1]],
+                             dim=-1)[..., :c * m + 1]
+            rows = base[..., :c * m].reshape(spectrum.shape[:-1] + (c, m))
+            # Element ``m`` of each run is the next row's first element.
+            nxt = torch.cat([rows[..., 1:, :1],
+                             base[..., -1:].unsqueeze(-2)], dim=-2)
+            return reorder(torch.cat([rows, nxt], dim=-1), w)
+        ext = torch.cat([spectrum, spectrum[..., :run]], dim=-1)
+        return torch.stack([reorder(ext[..., a0:a0 + run], w)
+                            for a0 in starts], dim=-2)
 
-    return extract_uniform if _is_uniform(n, starts, m) else extract_slices
+    def extract(spectrum: torch.Tensor) -> torch.Tensor:
+        if kernel_ok(spectrum):
+            return extract_rows(spectrum.contiguous(), starts[0], c, m,
+                                1.0 / (s_fac * m))
+        if gather_route(spectrum):
+            return _fft.ifft_unscaled(gather_rows(spectrum), routes)
+        return finish(reorder_rows(spectrum))
+
+    # The two reorders side by side, each times the whole 1/n (K-GATHER on
+    # a CUDA spectrum, its plain version on a CPU one), for holding one
+    # against the other.
+    extract.reorder = lambda spectrum: reorder_rows(spectrum) / (s_fac * m)
+    extract.gather = gather_rows
+    return extract

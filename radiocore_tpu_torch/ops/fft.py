@@ -157,6 +157,15 @@ def fft(x: torch.Tensor, routes: Optional[Routes] = None) -> torch.Tensor:
     return _fft_rec(_as_complex(x), -1.0, resolve(routes))
 
 
+def ifft_unscaled(x: torch.Tensor,
+                  routes: Optional[Routes] = None) -> torch.Tensor:
+    """The backward DFT without its 1/n, on :func:`ifft`'s route: for a
+    caller that folded the scale into its input, which saves the
+    normalization's pass over the result (``torch.fft.ifft`` runs it as
+    a kernel of its own on the card)."""
+    return _fft_rec(_as_complex(x), +1.0, resolve(routes))
+
+
 def ifft(x: torch.Tensor, routes: Optional[Routes] = None) -> torch.Tensor:
     """Inverse FFT along the last axis (normalized)."""
     r = resolve(routes)

@@ -203,3 +203,230 @@ def test_group_size_from_l2(l2_mib, m, buffers, c, lanes, want):
     num, den = L2_SHARE
     assert (num, den) == (2, 3)
     assert g == 1 or g * lanes * buffers * m * 8 * den <= (l2_mib << 20) * num
+
+
+# ---- K-GATHER: the reorder of any plan in one launch ---------------------
+
+# (n, shifts, m): a uniform power-of-two plan (K-EXTRACT's on the card), a
+# uniform plan of another m, non-uniform plans of an even and an odd m
+# (the station at the centre wraps past bin n − 1), overlapping stations
+# whose runs cross bin n − 1 at even and odd positions, an odd n, and
+# C = 1 of each parity.
+GATHER_PLANS = [
+    (2048, tuple(-o for o in _uniform_plan(4, 512, 2048)), 512),
+    (3000, tuple(-o for o in _uniform_plan(6, 500, 3000)), 500),
+    (8192, (0, 1500, -2600, 3999), 512),
+    (8192, (0, 1500, -2600, 3999), 513),
+    (8192, (101, -250, 7, -8), 700),
+    (8191, (0, 3, -4000, 4000), 701),
+    (8192, (0,), 512),
+    (8191, (1234,), 511),
+]
+
+
+@pytest.mark.parametrize("n,shifts,m", GATHER_PLANS)
+def test_gather_plain_matches_reorder(n, shifts, m):
+    """``extract_gather_plain`` (through the extractor's own starts,
+    window and fix weight, the whole scale 1/n folded in) against the
+    torch reorder and its scale, on the CPU; compared in the spectrum's
+    units (times n), where ATOL is the file's bound."""
+    from radiocore_tpu_torch.kernels import extract
+    from radiocore_tpu_torch.ops.channelize import (extraction_plan,
+                                                    make_extractor)
+    spec = torch.from_numpy(_spectrum(n, seed=m))
+    ext = make_extractor(n, shifts, m)
+    before = extract.gather_launches.count
+    got = ext.gather(spec)
+    want = ext.reorder(spec)
+    assert extract.gather_launches.count == before
+    assert got.shape == want.shape == (len(shifts), m)
+    np.testing.assert_allclose(got.numpy() * np.float64(n),
+                               want.numpy() * np.float64(n), atol=ATOL)
+    # The same, straight from the plain version's arguments.
+    starts, w_out, w_fix, _, _ = extraction_plan(n, shifts, m)
+    fix = None if w_fix is None else float(w_fix) / n
+    plain = extract.extract_gather_plain(
+        spec, torch.tensor(starts, dtype=torch.int64),
+        torch.from_numpy(w_out.astype(np.float64) / n).float(), fix)
+    np.testing.assert_allclose(plain.numpy() * np.float64(n),
+                               want.numpy() * np.float64(n), atol=ATOL)
+
+
+def _parent_extract(spectrum, n, shifts, m, impl):
+    """The CPU extraction as it was before K-GATHER (the reorder in
+    torch, its divide, the route's inverse), the yardstick of
+    'unchanged'."""
+    from radiocore_tpu_torch.ops import fft as tfft
+    from radiocore_tpu_torch.ops.channelize import (extraction_plan,
+                                                    uniform_extraction_start)
+    from radiocore_tpu_torch.runtime import Routes
+    routes = Routes(extract_ifft=impl)
+    starts, w_out, w_fix, m2, run = extraction_plan(n, shifts, m)
+    neg, c, s_fac = m - m2, len(shifts), n / m
+    w = torch.from_numpy(w_out)
+
+    def reorder(sl):
+        if m % 2 == 0:
+            y = torch.cat([sl[..., m // 2:m + 1], sl[..., 1:m // 2]],
+                          dim=-1) * w
+            y[..., m2 - 1] += sl[..., 0] * float(w_fix)
+        else:
+            y = torch.cat([sl[..., neg:m], sl[..., :neg]], dim=-1) * w
+        return y
+
+    a0 = uniform_extraction_start(n, shifts, m)
+    if a0 is not None:
+        base = torch.cat([spectrum[..., a0:], spectrum[..., :a0],
+                          spectrum[..., a0:a0 + 1]], dim=-1)[..., :c * m + 1]
+        rows = base[..., :c * m].reshape(spectrum.shape[:-1] + (c, m))
+        nxt = torch.cat([rows[..., 1:, :1], base[..., -1:].unsqueeze(-2)],
+                        dim=-2)
+        y = reorder(torch.cat([rows, nxt], dim=-1))
+    else:
+        ext = torch.cat([spectrum, spectrum[..., :run]], dim=-1)
+        y = torch.stack([reorder(ext[..., s:s + run]) for s in starts],
+                        dim=-2)
+    if impl == "fourstep":
+        return tfft.ifft_decomposed(y / s_fac, routes)
+    return tfft.ifft(y / s_fac, routes)
+
+
+@pytest.mark.parametrize("impl", ["auto", "native", "fourstep"])
+@pytest.mark.parametrize("n,shifts,m,batch", [
+    (2048, tuple(-o for o in _uniform_plan(4, 512, 2048)), 512, ()),
+    (3000, tuple(-o for o in _uniform_plan(6, 500, 3000)), 500, ()),
+    (8192, (0, 1500, -2600, 3999), 512, ()),
+    (8192, (0, 1500, -2600, 3999), 513, (2,)),
+    (8191, (1234,), 511, ()),
+])
+def test_cpu_extractor_unchanged(n, shifts, m, batch, impl):
+    """On the CPU, ``make_extractor`` under ``auto``, ``native`` and
+    ``fourstep`` gives what it gave before K-GATHER, bit for bit, and
+    launches nothing."""
+    from radiocore_tpu_torch.kernels import extract
+    from radiocore_tpu_torch.ops.channelize import make_extractor
+    from radiocore_tpu_torch.runtime import Routes
+    spec = torch.from_numpy(np.stack(
+        [_spectrum(n, seed=m + i) for i in range(int(np.prod(batch)))]
+    ).reshape(batch + (n,)))
+    before = extract.gather_launches.count
+    got = make_extractor(n, shifts, m, Routes(extract_ifft=impl))(spec)
+    assert extract.gather_launches.count == before
+    assert torch.equal(got, _parent_extract(spec, n, shifts, m, impl))
+
+
+def gather_model(spec, starts, win, fix, m):
+    """numpy model of csrc/extract_gather.cu over a spectrum (batch, n)
+    whose base is 16-byte aligned: the (blocks, rows) grid, each thread's
+    pairs at even flat output positions, the 16-byte load where the
+    kernel takes one (checked to hold the two bins the pair needs),
+    8-byte loads elsewhere, the fold of the fix bin and the store of each
+    pair. Returns the output (batch, C, m), how many times each output
+    was stored, and the number of 16-byte loads."""
+    threads, per_thread = 256, 4
+    batch, n = spec.shape
+    c = len(starts)
+    m2, lead = m // 2 + 1, 1 - m % 2
+    neg = m - m2
+    out = np.full(batch * c * m, np.nan, np.complex64)
+    stored = np.zeros(batch * c * m, np.int64)
+    wide = 0
+
+    def run_bin(start, j):
+        i = start + lead + (neg + j if j < m2 else j - m2)
+        return i if i < n else i - n
+
+    gx = -(-(m // 2 + 1) // (threads * per_thread))
+    for row in range(batch * c):
+        b, st = divmod(row, c)
+        sp, start = spec[b], starts[st]
+        vec = (b * n) % 2 == 0
+        base = row * m
+        lag = base & 1
+        pairs = (m + 1 + lag) >> 1
+        for bx in range(gx):
+            for u in range(per_thread):
+                for t in range(threads):
+                    k = bx * threads * per_thread + u * threads + t
+                    if k >= pairs:
+                        continue
+                    j = 2 * k - lag
+                    has_lo, has_hi = j >= 0, j + 1 < m
+                    lo = hi = np.complex64(0)
+                    if has_lo and has_hi and j + 1 != m2:
+                        i = run_bin(start, j)
+                        if vec and i % 2 == 0 and i + 1 < n:
+                            assert run_bin(start, j + 1) == i + 1
+                            lo, hi = sp[i], sp[i + 1]
+                            wide += 1
+                        else:
+                            assert run_bin(start, j + 1) == (i + 1) % n
+                            lo, hi = sp[i], sp[(i + 1) % n]
+                    else:
+                        if has_lo:
+                            lo = sp[run_bin(start, j)]
+                        if has_hi:
+                            hi = sp[run_bin(start, j + 1)]
+                    a = lo * np.float32(win[j]) if has_lo else None
+                    h = hi * np.float32(win[j + 1]) if has_hi else None
+                    if lead and j == m2 - 1:
+                        a = a + sp[start] * np.float32(fix)
+                    if lead and j + 1 == m2 - 1:
+                        h = h + sp[start] * np.float32(fix)
+                    if has_lo and has_hi:
+                        assert (base + j) % 2 == 0   # one 16-byte store
+                    if has_lo:
+                        out[base + j] = a
+                        stored[base + j] += 1
+                    if has_hi:
+                        out[base + j + 1] = h
+                        stored[base + j + 1] += 1
+    return out.reshape(batch, c, m), stored, wide
+
+
+@pytest.mark.parametrize("n,shifts,m,batch", [
+    (8192, (0, 1500, -2600, 3999), 512, 1),   # even starts: wide loads
+    (8192, (1, 1501, -2601, 3999), 512, 1),   # odd starts: narrow loads
+    (8192, (101, -250, 7, -8), 700, 1),        # wraps at odd and even bins
+    (8192, (0, 1500, -2600), 513, 2),          # odd flat row bases
+    (8191, (0, 3, -4000), 701, 2),             # row 2 of the spectrum odd
+    (4096, (0,), 2048, 1),                     # one station, two blocks
+])
+def test_gather_kernel_model(n, shifts, m, batch):
+    """The kernel's index map, modelled in numpy, against the plain
+    version: every output stored once, each pair's bins right."""
+    from radiocore_tpu_torch.kernels.extract import extract_gather_plain
+    from radiocore_tpu_torch.ops.channelize import extraction_plan
+    starts, w_out, w_fix, _, _ = extraction_plan(n, shifts, m)
+    win = (w_out.astype(np.float64) / n).astype(np.float32)
+    fix = None if w_fix is None else float(np.float32(np.float64(w_fix) / n))
+    spec = np.stack([_spectrum(n, seed=s) for s in range(batch)])
+    got, stored, wide = gather_model(spec, starts, win, fix, m)
+    assert (stored == 1).all()
+    if all(s % 2 == 0 for s in starts) and m % 2 == 0 and n % 2 == 0:
+        assert wide >= len(starts) * (m // 2 - 2)
+    if all(s % 2 for s in starts) and m % 2 == 0:
+        assert wide == 0
+    want = extract_gather_plain(torch.from_numpy(spec),
+                                torch.tensor(starts, dtype=torch.int64),
+                                torch.from_numpy(win), fix).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("n,m,fix,ok", [
+    (1024, 1024, 0.5, False),    # the even run needs m + 1 bins
+    (1024, 1023, None, True),
+    (1024, 1023, 0.5, False),    # an odd m takes no fix weight
+    (1024, 1022, None, False),   # an even m needs one
+    (1024, 1022, 0.5, True),
+])
+def test_gather_rejects(n, m, fix, ok):
+    from radiocore_tpu_torch.kernels.extract import extract_gather, gather_ok
+    spec = torch.from_numpy(_spectrum(n))
+    args = (spec, torch.zeros(2, dtype=torch.int64), torch.ones(m), fix)
+    if ok:
+        assert extract_gather(*args).shape == (2, m)
+    else:
+        with pytest.raises(ValueError):
+            extract_gather(*args)
+    assert gather_ok(n, m) == (m < n or m % 2 == 1)

@@ -139,7 +139,7 @@ def test_every_kernel_counter_is_registered():
                                              nco_pll)
     for counter in (fft_rows.launches, *fft_rows.entry_launches.values(),
                     fft_mixed.launches, extract.launches,
-                    extract_demod.launches, extract_demod.spec_launches,
+                    extract.gather_launches, extract_demod.launches, extract_demod.spec_launches,
                     fir.launches, nco_pll.launches):
         assert any(c is counter for c in COUNTERS)
     fresh = LaunchCounter()
