@@ -116,7 +116,7 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
                 timer: Optional[StageTimer] = None, *,
                 device: Optional[torch.device | str] = None,
                 routes: Optional[Routes] = None,
-                extract_demod: str = "off") -> None:
+                extract_demod: str = "off", pll: str = "analytic") -> None:
     """All-WBFM serving through the fused multi-station step on
     ``device`` (the first CUDA device when None): band FFT → all-station
     extraction → batched WBFM (``parallel/pipeline.py``). Requires
@@ -126,8 +126,9 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
     launches, the host's enqueue), ``fetch`` (waits on the audio, so the
     step's device time, and copies it to the host) and ``publish``. The
     pipe's host memcpy of each chunk into its page-locked slot, and the
-    launch of its copy, fall between the stages. ``routes`` and
-    ``extract_demod`` go to ``make_multi_station_step``.
+    launch of its copy, fall between the stages. ``routes``,
+    ``extract_demod`` and ``pll`` (``"nco"``, the feedback pilot loop,
+    with ``mode="exact"``) go to ``make_multi_station_step``.
     """
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
 
@@ -141,7 +142,7 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
     bw = int(specs[0].bandwidth)
     step, state = make_multi_station_step(
         n_band, offsets, bw, int(audio_rate), mode=mode,
-        extract_demod=extract_demod, device=device, routes=routes)
+        extract_demod=extract_demod, pll=pll, device=device, routes=routes)
     topics = [int(s.frequency).to_bytes(4, "little") for s in specs]
 
     pipe = IngestPipe(depth=2, device=device)  # chunk N+1's copy overlaps N
@@ -185,6 +186,10 @@ def main(argv=None) -> None:
     parser.add_argument("--fused", action="store_true",
                         help="all-WBFM fused multi-station step "
                              "(batched channelize+demod)")
+    parser.add_argument("--pll", choices=("analytic", "nco"),
+                        default="analytic",
+                        help="the fused step's pilot tracker: 'nco' runs "
+                             "the exact tail with the feedback loop")
     parser.add_argument("--wav-prefix", default=None,
                         help="also write each station to PREFIX_<i>.wav")
     parser.add_argument("--device", default=None,
@@ -227,8 +232,9 @@ def main(argv=None) -> None:
         if args.fused:
             serve_fused(specs, tuner.input_bandwidth, args.audio_rate,
                         source, args.seconds, publisher, sinks, metrics,
+                        mode="exact" if args.pll == "nco" else "fast",
                         timer=timer, device=device, routes=routes,
-                        extract_demod=extract_demod)
+                        extract_demod=extract_demod, pll=args.pll)
         else:
             serve(tuner, source, args.seconds, publisher, sinks, metrics,
                   timer=timer)

@@ -49,6 +49,7 @@ from radiocore_tpu_torch.ops.resample import (_fold_window_onesided,
                                               resample_real)
 from radiocore_tpu_torch.runtime.graphs import compile_step
 from radiocore_tpu_torch.runtime.platform import resolve_device
+from radiocore_tpu_torch.runtime.profiling import span
 from radiocore_tpu_torch.runtime.routes import Routes, resolve
 from radiocore_tpu_torch.runtime.transfer import to_device_c64, to_host
 
@@ -92,7 +93,9 @@ def make_wbfm_step(input_size: int, output_size: int,
     ``(..., input_size//2 + 1)`` in place of the IQ and carries
     ``needed_bins``, the highest bin it reads. ``pll='nco'`` (exact mode
     only) tracks the pilot with the feedback loop of ``ops/nco_pll.py``
-    and carries its state as ``state["pll"]``. On a dead station (zero
+    and carries its state as ``state["pll"]``, inside a
+    ``runtime.profiling`` span ``pll`` (the normalisation, the loop and
+    the subcarrier). On a dead station (zero
     IQ) the exact mode with the analytic pilot gives NaN audio, the fast
     modes silence. ``routes`` (None: the defaults) routes the transforms
     and FIRs (module docstring).
@@ -126,11 +129,14 @@ def make_wbfm_step(input_size: int, output_size: int,
             # Feedback carrier tracking: the loop bandwidth rejects the
             # pilot-band noise that the analytic path passes straight
             # into the subcarrier's phase.
-            rms = torch.sqrt(torch.mean(pilot * pilot, dim=-1, keepdim=True))
-            norm = pilot / torch.clamp_min(rms,
-                                           torch.finfo(torch.float32).tiny)
-            traj, extra["pll"] = nco_pll_track(norm, nco_gains, state["pll"])
-            subcarrier = pll_subcarrier(traj, 2, "imag")
+            with span("pll"):
+                rms = torch.sqrt(torch.mean(pilot * pilot, dim=-1,
+                                            keepdim=True))
+                norm = pilot / torch.clamp_min(
+                    rms, torch.finfo(torch.float32).tiny)
+                traj, extra["pll"] = nco_pll_track(norm, nco_gains,
+                                                   state["pll"])
+                subcarrier = pll_subcarrier(traj, 2, "imag")
         else:
             subcarrier = pll_harmonic(analytic_signal(pilot, routes), 2,
                                       "imag")

@@ -69,6 +69,7 @@ def make_multi_station_step(
         mode: str = "exact",
         extract_demod: str = "off",
         *,
+        pll: str = "analytic",
         device: Optional[torch.device | str] = None,
         mesh: Optional[RadioMesh] = None,
         routes: Optional[Routes] = None,
@@ -96,6 +97,14 @@ def make_multi_station_step(
     spectra the tail reads (K-XDEMOD-SPEC). A plan the fused kernels do
     not support raises ``ValueError`` (the JAX package falls back to
     ``"off"`` there).
+
+    ``pll`` is the exact tail's pilot tracker (``models/wbfm``):
+    ``"analytic"`` (stateless, the default) or ``"nco"``, the feedback
+    loop (K-NCO on a card), whose state the step carries from chunk to
+    chunk as ``state["pll"]`` (a ``PLLState`` per station). ``"nco"``
+    needs ``mode="exact"`` and ``extract_demod="off"`` and takes no mesh;
+    anything else raises ``ValueError`` (the WBFM step checks the mode
+    and the name).
 
     ``step.stages`` holds the three stages that ``step`` chains, for
     per-stage timing: ``band_fft``, ``extract`` and ``demod_tail`` for
@@ -142,6 +151,9 @@ def make_multi_station_step(
         raise ValueError(f"extract_demod={extract_demod!r} needs "
                          f"mode='fast': the exact step works on the "
                          f"station IQ")
+    if pll == "nco" and mesh is not None:
+        raise ValueError("pll='nco' with a mesh: the mesh step carries no "
+                         "loop state")
     if mesh is not None:
         if extract_demod != "off":
             raise ValueError(f"extract_demod={extract_demod!r} with a mesh: "
@@ -169,7 +181,8 @@ def make_multi_station_step(
                 f"{ok.__name__} accepts)")
     tail = make_wbfm_step(
         sc, audio_chunk, deemphasis,
-        mode="exact" if mode == "exact" else "fast_spec", routes=routes)
+        mode="exact" if mode == "exact" else "fast_spec", pll=pll,
+        routes=routes)
 
     def band_fft(band_iq: torch.Tensor) -> torch.Tensor:
         return _fft.fft(band_iq, routes)
@@ -233,7 +246,8 @@ def make_multi_station_step(
 
     step.stages = stages
     state0 = wbfm_init_state(audio_chunk, deemphasis,
-                             batch_shape=(n_stations,), device=device)
+                             batch_shape=(n_stations,), pll=pll,
+                             device=device)
     return compile_step(step, device), state0
 
 
