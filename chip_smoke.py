@@ -58,7 +58,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``cuobjdump -sass``; times it (CUDA events and ``torch.profiler``)
    beside its bytes bound and its latency bound (the bare chain timed by
    the probe ``rc_nco_chain_probe``) and prints the cycles it takes per
-   sample;
+   sample; then the phasor form the nco step launches
+   (``nco_pll_subcarrier_rows``) against its plain loop on the same pilots
+   at 64 x 262 144 over two chunks (acquiring, then from the carried
+   state), on rows off a 16-byte boundary at an odd length and at a 5 kHz
+   loop (the tiles each redoes counted alike), timed beside its bytes
+   bound and the phasor chain's latency;
 9. runs K-FIR at the pilot bandpass's shape (41 taps, 64 x 262 390, the
    odd extension included) against float64, and ``zero_phase_fir`` on the
    card against the port on the CPU;
@@ -228,6 +233,16 @@ NCO_F64_MAX = 2e-4    # rad, modulo 2 pi
 NCO_SHORT = (8, 4096)
 NCO_DEAD = 3          # a NaN pilot row in the short check
 NCO_WILD = 5          # a row started 8 turns away (about -+50 rad)
+# K-NCO's phasor form (what the nco step launches) against its plain loop:
+# the phase as above, the subcarrier -sin 2p by twice that.
+NCO_SUB_MAX = 2 * NCO_PLAIN_MAX
+NCO_OFF_N = 48_003    # an odd length, rows off a 16-byte boundary
+# Acquiring from a random phase, two float32 loops part by up to about
+# 1e-3 before the feedback pulls them together (within 13 000 samples on
+# these pilots; a float32 loop and the float64 one part as far): the
+# acquiring chunk's subcarrier is held from this sample on.
+NCO_ACQUIRE = 65_536
+NCO_WIDE_HZ = 5000.0  # a loop whose psi passes the series' limit
 FAST_EXACT_MIN_DB = 40.0   # fast against exact audio on a real station
 
 # Published peaks of one H100 SXM: the yardstick of each kernel's bound.
@@ -1341,27 +1356,52 @@ def nco_model(pilot, gains, phase, freq, dtype):
 
 def nco_sass_summary(lib_path) -> str:
     """The opcodes of K-NCO's instantiations in the built library that
-    show its chain and its guard (``cuobjdump -sass``): the hardware
-    cosines, the fused multiply-adds, the branches and calls (cosf's
-    guard is a branch if they come one a sample) and the selects."""
+    show its chain and its guard (``cuobjdump -sass``): the special-function
+    unit's (MUFU, of which the hardware cosines), the fused multiply-adds,
+    the branches and calls (cosf's guard is a branch if they come one a
+    sample) and the selects; and the same in the function's largest
+    straight-line block (between labels and branches), the tile's samples
+    unrolled: the phasor form's has no MUFU."""
     import re
     tool = Path(build_tool("cuobjdump"))
     out = subprocess.run([str(tool), "-sass", str(lib_path)],
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout
     parts = re.split(r"\n\s*Function : ", out)
+    op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)")
+    kinds = ("MUFU", "MUFU.COS", "FFMA", "FSEL", "BRA", "CALL")
     lines = []
     for part in parts[1:]:
         name = part.split("\n", 1)[0].strip()
         if "nco_pll_kernel" not in name:
             continue
-        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9_.]*)", part)
-        count = {k: sum(1 for o in ops if o.startswith(k))
-                 for k in ("MUFU.COS", "FFMA", "FSEL", "BRA", "CALL")}
+        ops, blocks, block = [], [], []
+        for line in part.splitlines():
+            if re.match(r"\s*\.L_x_\d+:", line):
+                blocks.append(block)
+                block = []
+                continue
+            m = op_re.search(line)
+            if m is None:
+                continue
+            ops.append(m.group(1))
+            block.append(m.group(1))
+            if m.group(1).startswith(("BRA", "EXIT", "RET", "CALL", "BRX")):
+                blocks.append(block)
+                block = []
+        blocks.append(block)
+        big = max(blocks, key=len)
+
+        def count(seq):
+            return ", ".join(f"{k} {sum(1 for o in seq if o.startswith(k))}"
+                             for k in kinds)
+        form = "nco_pll_kernel_phasor" if "phasor" in name else \
+            "nco_pll_kernel"
         vec = "true" if "ILb1E" in name else "false"
-        lines.append(f"nco_pll_kernel<{vec}>: {len(ops)} instructions, "
-                     + ", ".join(f"{k} {v}" for k, v in count.items()))
+        lines.append(f"{form}<{vec}>: {len(ops)} instructions, {count(ops)}; "
+                     f"largest straight-line block {len(big)} instructions, "
+                     f"{count(big)}")
     if not lines:
         raise AssertionError("cuobjdump shows no nco_pll_kernel")
     return "; ".join(lines)
@@ -1487,7 +1527,9 @@ def check_nco(device, gen) -> dict:
                 return knco.nco_chain_probe(n, chain, lanes, *gains)
             probe_ms = time_ms(run_probe, reps=3, warmup=1)
             _, cycles = run_probe()
-            links = n - n % knco.TILE if chain == "sample" else n
+            tile = {"sample": knco.TILE,
+                    "phasor_sample": knco.PHASOR_TILE}.get(chain)
+            links = n - n % tile if tile else n
             probe[chain, lanes] = (probe_ms,
                                    float(cycles.double().max()) / links)
     latency_ms = min(probe["bare", lanes][0] for lanes in (1, 32))
@@ -1528,9 +1570,125 @@ def check_nco(device, gen) -> dict:
                              f"{err_f}")
     if not float(hz.abs().max()) < 4.0:
         raise AssertionError(f"K-NCO did not lock: offsets {hz}")
-    return dict(max_abs_err=short["err"], ms=ms, plain_ms=short["plain_ms"],
-                plain_shape=f"{NCO_SHORT[0]}x{NCO_SHORT[1]}", **least,
-                library_ms=None)
+    # The entry's numbers are the phasor form's, the kernel the paths
+    # launch; the phase form's (nco_pll_track's trajectory, on no path)
+    # beside them.
+    phase_form = dict(max_abs_err=short["err"], ms=ms, device_ms=device_ms,
+                      plain_ms=short["plain_ms"],
+                      plain_shape=f"{NCO_SHORT[0]}x{NCO_SHORT[1]}", **least,
+                      latency_ms=latency_ms)
+    return dict(**check_nco_phasor(rows, n, gains, gen, probe, mhz),
+                library_ms=None, phase_form=phase_form)
+
+
+def check_nco_phasor(rows, n, gains, gen, probe, mhz) -> dict:
+    """Phase 8, the phasor form: ``nco_pll_subcarrier_rows`` against
+    ``nco_pll_subcarrier_plain`` on the same pilots at the nco path's
+    shape ``rows`` x ``n``, two chunks as the step runs them: the first
+    acquiring from a random phase, the second from the state the kernel
+    carried; then on rows of the second off a 16-byte boundary at an odd
+    length, and at a loop of ``NCO_WIDE_HZ`` whose tiles the guard
+    redoes, the tiles each redid counted alike. Its time on the second
+    chunk beside its bytes bound and its latency bound (the phasor chain
+    over a row, from ``probe``). Returns the kernel's entry."""
+    import numpy as np
+    import torch
+    from radiocore_tpu_torch.kernels import nco_pll as knco
+    from radiocore_tpu_torch.ops.nco_pll import pll_design
+
+    card = gen.device
+    chunks = pilots(gen, rows, 2 * n, card).reshape(rows, 2, n).unbind(1)
+
+    def scale(x):
+        rms = torch.sqrt(torch.mean(x * x, dim=-1))
+        return torch.reciprocal(torch.clamp_min(
+            rms, torch.finfo(torch.float32).tiny))
+
+    def against_plain(what, x, g, phase, freq, held_from=0):
+        """The kernel and the plain loop on ``x``, held from sample
+        ``held_from`` on; the kernel's result."""
+        r = x.shape[0]
+        args = (scale(x), *g, phase, freq)
+        before = (knco.redone.read(card), knco.redone.read("cpu"))
+        got = knco.nco_pll_subcarrier_rows(x, *args)
+        t0 = time.perf_counter()
+        ref = knco.nco_pll_subcarrier_plain(x.cpu(), *(
+            a.cpu() if torch.is_tensor(a) else a for a in args))
+        plain_s[0] += time.perf_counter() - t0
+        redid = (knco.redone.read(card) - before[0],
+                 knco.redone.read("cpu") - before[1])
+        d = (got[0].cpu() - ref[0]).abs()
+        err = (float(d[:, held_from:].max()),
+               float(wrapped(got[1].cpu(), ref[1]).abs().max()),
+               max_abs(got[2].cpu(), ref[2]))
+        held = ""
+        if held_from:
+            # Before it, the row the two loops part most, each against the
+            # float64 loop (nco_model) on the same samples.
+            r0 = int(d[:, :held_from].amax(1).argmax())
+            traj = nco_model(
+                (x[r0, :held_from].double() * args[0][r0].double())
+                .cpu().numpy()[None], g, phase[r0:r0 + 1].cpu().numpy(),
+                freq[r0:r0 + 1].cpu().numpy(), np.float64)[0]
+            sub64 = torch.from_numpy(-np.sin(2 * traj[0]))
+            held = (f"from sample {held_from} on (before it: "
+                    f"{float(d[:, :held_from].max()):.3e}; on row {r0} the "
+                    f"kernel {max_abs(got[0][r0, :held_from].cpu(), sub64):.3e}"
+                    f" and the plain loop "
+                    f"{max_abs(ref[0][r0, :held_from], sub64):.3e} from the "
+                    f"float64 loop) ")
+        print(f"[kernel] K-NCO phasor {what} against its plain loop: "
+              f"subcarrier {held}{err[0]:.3e} (bound {NCO_SUB_MAX:.0e}), "
+              f"final phase {err[1]:.3e} rad (bound {NCO_PLAIN_MAX:.0e}, "
+              f"modulo 2 pi), final freq {err[2]:.3e} (bound 1e-7); tiles "
+              f"redone by the kernel {redid[0]}, by the plain loop "
+              f"{redid[1]}")
+        if not (err[0] <= NCO_SUB_MAX and err[1] <= NCO_PLAIN_MAX
+                and err[2] <= 1e-7 and redid[0] == redid[1]
+                and (redid[0] > 0) == (g is wide)):
+            raise AssertionError(f"K-NCO phasor {what} differs from its "
+                                 f"plain loop: {err}, redone {redid}")
+        errs.append(err[0])
+        return got
+
+    errs, plain_s = [], [0.0]
+    wide = pll_design(STATION, 19e3, NCO_WIDE_HZ)
+    phase0 = 2.0 * torch.rand(rows, generator=gen, device=card) - 1.0
+    freq0 = 1e-5 * torch.randn(rows, generator=gen, device=card)
+    _, phase, freq = against_plain(
+        f"{rows}x{n} acquiring from a random phase", chunks[0], gains,
+        phase0, freq0, held_from=NCO_ACQUIRE)
+    x = chunks[1]
+    against_plain(f"{rows}x{n} from the carried state", x, gains, phase,
+                  freq)
+    against_plain(f"{rows}x{NCO_OFF_N} rows off a 16-byte boundary",
+                  x[:, 1:1 + NCO_OFF_N], gains, phase, freq)
+    against_plain(f"4x{NCO_OFF_N - 3} at a {NCO_WIDE_HZ:.0f} Hz loop",
+                  x[:4, :NCO_OFF_N - 3].contiguous(), wide, phase[:4],
+                  freq[:4])
+
+    args = (scale(x), *gains, phase, freq)
+    ms = time_ms(lambda: knco.nco_pll_subcarrier_rows(x, *args), reps=5,
+                 warmup=1)
+    (_, device_ms), = [(k, t) for k, t in kernel_times_ms(
+        lambda: knco.nco_pll_subcarrier_rows(x, *args), reps=3)
+        if "nco_pll_kernel_phasor" in k]
+    # Read the pilot and its scale, write the subcarrier; the state.
+    least = bound(4 * (2 * x.numel() + 5 * rows), 21.0 * x.numel())
+    latency_ms = min(probe["phasor", lanes][0] for lanes in (1, 32))
+    print(f"[kernel] K-NCO phasor {rows}x{n}: kernel {ms:.3f} ms between "
+          f"CUDA events, {device_ms:.3f} ms device time; "
+          f"{device_ms * 1e-3 * mhz * 1e6 / n:.1f} cycles a sample at "
+          f"{mhz:.0f} MHz; least {latency_ms:.3f} ms by latency (the "
+          f"phasor chain over a row: {latency_ms / device_ms:.1%}), "
+          f"{least['bound_ms']:.3f} ms by {least['bound_by']}; plain loops "
+          f"{plain_s[0]:.1f} s on the host; no library call")
+    if latency_ms > least["bound_ms"]:
+        least = dict(bound_ms=latency_ms, bound_by="latency")
+    return dict(kernel="nco_pll_kernel_phasor", max_abs_err=max(errs),
+                ms=ms, device_ms=device_ms, plain_ms=plain_s[0] * 1e3,
+                plain_shape=f"2 x {rows}x{n}, {rows}x{NCO_OFF_N}, "
+                f"4x{NCO_OFF_N - 3}", **least)
 
 
 def check_fir_pilot(device, gen) -> None:

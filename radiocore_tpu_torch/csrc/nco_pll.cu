@@ -73,6 +73,78 @@
 // pulls them back. kernels/nco_pll.py `nco_pll_track_plain` keeps the
 // scan's order; chip_smoke.py holds the kernel to it and to float64 with
 // bounds that say so.
+//
+// The phasor form (nco_pll_kernel_phasor, rc_nco_pll_subcarrier): the same
+// loop for a caller that needs the 38 kHz subcarrier and not the phase
+// (the stereo decoder, ops/nco_pll.py `nco_pll_subcarrier`). It carries
+// the NCO as the phasor w = sqrt(2) e^{jp} in place of p:
+//
+//   cos p  = Re w / sqrt(2)              the detector's cosine, free
+//   psi    = fma(a, Re w, f)             a = (kp + ki) s_row x / sqrt(2)
+//   f'     = fma(b, Re w, f)             b = ki s_row x / sqrt(2)
+//   sub[t] = -Re w Im w                  -sin 2p, the subcarrier
+//   w'     = (w e^{jw0}) e^{jpsi}
+//
+// with s_row the row's 1 / RMS (the pilot is read as the bandpass gives
+// it), and the gains over sqrt(2) and e^{jw0} = (cw, sw) rounded once from
+// float64 on the host. The length sqrt(2) makes the subcarrier one
+// product.
+//
+// What bounds it: still the chain of one sample, but with no
+// transcendental on it. In the loop |psi| is about 1e-3 rad (the gains of
+// a 50 Hz loop at 240 kS/s sum to 5.9e-4, the normalised pilot peaks near
+// 1.5), so e^{jpsi} is 1 - psi^2 / 2 + j psi to within 2^-26 for every
+// |psi| up to kNcoPsiMax = 2^-8 (the series' error is psi^3 / 6). With
+// u = w e^{jw0} and h = psi / 2 it is applied as
+//
+//   Re w' = fma(-psi, fma(h, Re u, Im u), Re u)
+//   Im w' = fma(psi, fma(-h, Im u, Re u), Im u)
+//
+// so the chain is four dependent FP32 operations (psi, h, the inner and
+// the outer multiply-add: 16 cycles), and u, which needs w only, is ready
+// by the time h is. A sample is 15 instructions (two products of x, psi
+// and f, the subcarrier's product, u's four, the series' five, one max),
+// issued one at a time by the row's one warp: measured (NVIDIA H100 80GB
+// HBM3, 700 W, 1980 MHz; rc_nco_chain_probe) the bare recurrence takes
+// 21.5 cycles a sample and the whole sample without loads and stores
+// 21.9; in the kernel, at 24 x 240 000, 26.9 (3.26 ms, against the phase
+// form's 33.8 to 34.1 at the same shape). No MUFU is left on the fast
+// path.
+//
+// What the design does about it:
+//  - The series is checked a tile at a time, off the chain: each sample
+//    folds |psi| into a running max, and a tile whose max passed
+//    kNcoPsiMax (a wide loop, a pilot with spikes, an acquisition far off
+//    19 kHz) is done again from its first state with the exact rotation
+//    (sincosf) by one branch a tile, and counted on the caller's device
+//    counter (`redone`, one atomic add a redone tile), so that a graph's
+//    replays count too. The redo (phasor_redo) is out of line: it reads
+//    the tile's pilot back and writes its subcarrier again by pointer, so
+//    the fast path's code stays in one piece. A phase beyond 2 pi needs no
+//    guard: the phasor has no phase to wrap.
+//  - |w| drifts by the rounding of each rotation (about 1e-7 a sample)
+//    and is brought back to sqrt(2) once a tile by one Newton step,
+//    g = 1.5 - |w|^2 / 4.
+//  - One thread a row, one row a block (nco_lanes; 24 rows are 24 blocks
+//    of one thread), as the phase form: every lane of a warp working the
+//    same row with lane q keeping quad q of the subcarrier (one store a
+//    tile), or a rolled loop with the pilot shuffled from the lanes,
+//    measured no faster (30.8 and 35.7 cycles a sample at 96 and 32
+//    samples a group).
+//  - Loads as the phase form's (16-byte, a tile ahead, the L2 prefetch);
+//    each quad of the subcarrier leaves by a 16-byte store as soon as it
+//    is worked, in place of the trajectory, so the caller's passes over
+//    the trajectory (2 traj, sin) go away. A tile is 80 samples
+//    (kNcoPhasorTile): by measurement at 24 x 240 000 the time a sample
+//    went 32.0, 30.4, 30.0, 30.9, 26.7, 26.6, 28.5, 29.7, 30.2 cycles at
+//    48, 40, 64, 72, 80, 88, 96, 104, 112 samples a tile; two tiles a
+//    loop with no copy between them, or one buffer filled from L1 after
+//    an L1 prefetch, were slower (31.8 to 44.2).
+//  - The state crosses chunks as the phase: w0 = sqrt(2) sincosf(phase_in),
+//    and phase_out = atan2f(Im w, Re w), in (-pi, pi] as the scan's
+//    wrapped phase is.
+// kernels/nco_pll.py `nco_pll_subcarrier_plain` is the same arithmetic in
+// float32 with the rows as the vector.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -84,6 +156,10 @@ constexpr int kNcoTile = 48;     // samples per tile
 constexpr int kNcoAhead = 8;     // tiles between a row's L2 prefetch and use
 constexpr float kNcoPi = 3.14159265358979323846f;
 constexpr float kNcoTwoPi = 6.28318530717958647692f;
+// The phasor form's series limit: (1 - psi^2 / 2, psi) is e^{jpsi} to
+// within 2^-26 for |psi| <= 2^-8.
+constexpr float kNcoPsiMax = 0.00390625f;
+constexpr int kNcoPhasorTile = 80;  // samples a tile of the phasor form
 
 struct NcoPll {
   const float* x;  // (rows, n), rows x_stride apart
@@ -147,14 +223,14 @@ __device__ __forceinline__ void nco_tile(const float (&x)[kN],
   }
 }
 
-// A tile: 16-byte accesses (kVec) or scalar ones.
-template <bool kVec>
+// A tile of either form: 16-byte accesses (kVec) or scalar ones.
+template <bool kVec, int kN>
 __device__ __forceinline__ void nco_load_tile(const float* src,
-                                              float (&v)[kNcoTile]) {
+                                              float (&v)[kN]) {
   if (kVec) {
     const float4* s4 = reinterpret_cast<const float4*>(src);
 #pragma unroll
-    for (int q = 0; q < kNcoTile / 4; ++q) {
+    for (int q = 0; q < kN / 4; ++q) {
       const float4 t = __ldcs(s4 + q);
       v[4 * q] = t.x;
       v[4 * q + 1] = t.y;
@@ -163,7 +239,7 @@ __device__ __forceinline__ void nco_load_tile(const float* src,
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < kNcoTile; ++j) v[j] = __ldcs(src + j);
+    for (int j = 0; j < kN; ++j) v[j] = __ldcs(src + j);
   }
 }
 
@@ -230,6 +306,185 @@ __global__ void __launch_bounds__(kNcoThreads)
   prm.freq_out[row] = f;
 }
 
+struct NcoPhasor {
+  const float* x;  // (rows, n), rows x_stride apart: the pilot
+  long long x_stride;
+  const float* scale;     // (rows,) 1 / RMS of the row
+  const float* phase_in;  // (rows,)
+  const float* freq_in;   // (rows,)
+  float* sub;             // (rows, n), contiguous: -sin 2p
+  float* phase_out;       // (rows,)
+  float* freq_out;        // (rows,)
+  unsigned long long* redone;  // tiles done again with sincosf
+  long long rows;
+  long long n;
+  float ak, ai;  // (ki + kp) / sqrt(2) and ki / sqrt(2), float32
+  float cw, sw;  // e^{j w0}
+};
+
+// The rotation e^{jpsi} of one sample: kPhasorSeries (1 - psi^2 / 2, psi),
+// folding |psi| into m; kPhasorExact sincosf; kPhasorEither the series
+// below kNcoPsiMax and sincosf above it, sample by sample (the ragged end).
+constexpr int kPhasorSeries = 0;
+constexpr int kPhasorExact = 1;
+constexpr int kPhasorEither = 2;
+
+// One sample: returns the subcarrier of the phase the detector saw,
+// -sin 2p = -Re w Im w, and turns (w, f) on by one sample. as = ak s_row,
+// bs = ai s_row.
+template <int kMode>
+__device__ __forceinline__ float phasor_sample(float x, float& wr, float& wi,
+                                               float& f, float as, float bs,
+                                               float cw, float sw, float& m) {
+  const float out = __fmul_rn(-wr, wi);
+  const float a = __fmul_rn(as, x);
+  const float b = __fmul_rn(bs, x);
+  const float psi = __fmaf_rn(a, wr, f);
+  f = __fmaf_rn(b, wr, f);
+  const float ur = __fmaf_rn(wr, cw, __fmul_rn(-wi, sw));
+  const float ui = __fmaf_rn(wr, sw, __fmul_rn(wi, cw));
+  if (kMode == kPhasorExact ||
+      (kMode == kPhasorEither && fabsf(psi) > kNcoPsiMax)) {
+    float c, s;
+    sincosf(psi, &s, &c);
+    wr = __fmaf_rn(ur, c, __fmul_rn(-ui, s));
+    wi = __fmaf_rn(ui, c, __fmul_rn(ur, s));
+  } else {
+    if (kMode == kPhasorSeries) m = fmaxf(m, fabsf(psi));
+    const float h = __fmul_rn(0.5f, psi);
+    const float qr = __fmaf_rn(h, ur, ui);
+    const float qi = __fmaf_rn(-h, ui, ur);
+    wr = __fmaf_rn(-psi, qr, ur);
+    wi = __fmaf_rn(psi, qi, ui);
+  }
+  return out;
+}
+
+struct PhasorState {
+  float wr, wi, f;
+};
+
+// The exact rotation over `count` samples from `st`, the pilot read back
+// from `x` and the subcarrier written again to `out`: a tile's redo, out of
+// line so that the fast path's code stays in one piece.
+__device__ __noinline__ PhasorState phasor_redo(const float* x, float* out,
+                                                int count, PhasorState st,
+                                                float as, float bs, float cw,
+                                                float sw) {
+  float m = 0.0f;
+  for (int j = 0; j < count; ++j) {
+    out[j] = phasor_sample<kPhasorExact>(__ldcs(x + j), st.wr, st.wi, st.f,
+                                         as, bs, cw, sw, m);
+  }
+  return st;
+}
+
+// Four samples of a tile's subcarrier by one 16-byte store (kVec) or by
+// four scalar ones.
+template <bool kVec>
+__device__ __forceinline__ void phasor_store4(float* dst, float a, float b,
+                                              float c, float d) {
+  if (kVec) {
+    __stcs(reinterpret_cast<float4*>(dst), make_float4(a, b, c, d));
+  } else {
+    __stcs(dst, a);
+    __stcs(dst + 1, b);
+    __stcs(dst + 2, c);
+    __stcs(dst + 3, d);
+  }
+}
+
+// |w| back to sqrt(2): one Newton step of 1 / |w|, once a tile.
+__device__ __forceinline__ void phasor_renorm(float& wr, float& wi) {
+  const float g =
+      __fmaf_rn(__fmaf_rn(wr, wr, __fmul_rn(wi, wi)), -0.25f, 1.5f);
+  wr = __fmul_rn(wr, g);
+  wi = __fmul_rn(wi, g);
+}
+
+// kN samples (a multiple of 4) on the series, each four stored as soon as
+// they are worked, so that the stores spread over the tile; if one of them
+// had |psi| past the series' limit, the tile again from the same state
+// with sincosf (phasor_redo, which stores over the first results),
+// counted on `redone`. Then |w| back to sqrt(2).
+template <bool kVec, int kN>
+__device__ __forceinline__ void phasor_tile(const float (&x)[kN],
+                                            const float* xg, float* dst,
+                                            float& wr, float& wi, float& f,
+                                            float as, float bs, float cw,
+                                            float sw,
+                                            unsigned long long* redone) {
+  static_assert(kN % 4 == 0, "a tile is whole quads");
+  const PhasorState st0{wr, wi, f};
+  float m = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kN / 4; ++q) {
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      o[j] = phasor_sample<kPhasorSeries>(x[4 * q + j], wr, wi, f, as, bs,
+                                          cw, sw, m);
+    }
+    phasor_store4<kVec>(dst + 4 * q, o[0], o[1], o[2], o[3]);
+  }
+  if (m > kNcoPsiMax) {
+    const PhasorState st = phasor_redo(xg, dst, kN, st0, as, bs, cw, sw);
+    wr = st.wr;
+    wi = st.wi;
+    f = st.f;
+    // Never null from rc_nco_pll_subcarrier. Without the test ptxas
+    // schedules the tile otherwise, and the kernel ran 1.6% slower at
+    // 24 x 240 000 (NVIDIA H100 80GB HBM3, 700 W).
+    if (redone != nullptr) atomicAdd(redone, 1ULL);
+  }
+  phasor_renorm(wr, wi);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kNcoThreads)
+    nco_pll_kernel_phasor(const NcoPhasor prm) {
+  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= prm.rows) return;
+  const float* xr = prm.x + row * prm.x_stride;
+  float* sr = prm.sub + row * prm.n;
+  const float s_row = prm.scale[row];
+  const float as = __fmul_rn(prm.ak, s_row);
+  const float bs = __fmul_rn(prm.ai, s_row);
+  const float cw = prm.cw;
+  const float sw = prm.sw;
+  float wr, wi;
+  sincosf(prm.phase_in[row], &wi, &wr);
+  wr = __fmul_rn(wr, 1.41421356237309504880f);
+  wi = __fmul_rn(wi, 1.41421356237309504880f);
+  float f = prm.freq_in[row];
+  const long long tiles = prm.n / kNcoPhasorTile;
+  float next[kNcoPhasorTile];
+  if (tiles > 0) nco_load_tile<kVec>(xr, next);
+  for (long long i = 0; i < tiles; ++i) {
+    float cur[kNcoPhasorTile];
+#pragma unroll
+    for (int j = 0; j < kNcoPhasorTile; ++j) cur[j] = next[j];
+    if (i + 1 < tiles) {
+      nco_load_tile<kVec>(xr + (i + 1) * kNcoPhasorTile, next);
+    }
+    if (i + kNcoAhead < tiles) {
+      asm volatile("prefetch.global.L2 [%0];"
+                   :
+                   : "l"(xr + (i + kNcoAhead) * kNcoPhasorTile));
+    }
+    phasor_tile<kVec>(
+        cur, xr + i * kNcoPhasorTile, sr + i * kNcoPhasorTile, wr, wi, f, as,
+        bs, cw, sw, prm.redone);
+  }
+  float m = 0.0f;
+  for (long long t = tiles * kNcoPhasorTile; t < prm.n; ++t) {
+    sr[t] = phasor_sample<kPhasorEither>(xr[t], wr, wi, f, as, bs, cw, sw,
+                                         m);
+  }
+  prm.phase_out[row] = atan2f(wi, wr);
+  prm.freq_out[row] = f;
+}
+
 // The measuring aid behind rc_nco_chain_probe: each thread runs n links of
 // a chain with x and the constants in registers, no loads or stores, and
 // writes its phase and the SM cycles the loop took once at the end.
@@ -237,6 +492,12 @@ __global__ void __launch_bounds__(kNcoThreads)
 //   kChain 1: the same with the wrap on the chain, __cosf(wrap(p))
 //   kChain 2: the kernel's tiles (nco_tile, the guard included), n / 48
 //             of them
+//   kChain 3: the phasor's bare recurrence, w' = (w e^{jw0}) e^{jpsi}
+//             with psi = fma(a, Re w, f) and the series, and f's update
+//   kChain 4: the phasor kernel's tiles without memory: each sample's
+//             subcarrier and the max of |psi| kept (an empty asm, no
+//             instruction) in place of the stores and the guard's branch,
+//             and |w|'s renormalisation, n / kNcoPhasorTile of them
 template <int kChain>
 __global__ void nco_chain_probe_kernel(float* result, long long* cycles,
                                        long long n, float x, float kp,
@@ -247,7 +508,36 @@ __global__ void nco_chain_probe_kernel(float* result, long long* cycles,
   float p = 0.01f * threadIdx.x;
   float f = 0.0f;
   const long long t0 = clock64();
-  if (kChain == 2) {
+  if (kChain == 3 || kChain == 4) {
+    const float as = __fmul_rn(kk, 0.70710678118654752440f);
+    const float bs = __fmul_rn(ki, 0.70710678118654752440f);
+    const float cw = cosf(w0);
+    const float sw = sinf(w0);
+    float wr, wi;
+    sincosf(p, &wi, &wr);
+    wr = __fmul_rn(wr, 1.41421356237309504880f);
+    wi = __fmul_rn(wi, 1.41421356237309504880f);
+    if (kChain == 3) {
+      float m = 0.0f;
+#pragma unroll 16
+      for (long long i = 0; i < n; ++i) {
+        phasor_sample<kPhasorSeries>(x, wr, wi, f, as, bs, cw, sw, m);
+      }
+    } else {
+      for (long long i = 0; i < n / kNcoPhasorTile; ++i) {
+        float m = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kNcoPhasorTile; ++j) {
+          const float o = phasor_sample<kPhasorSeries>(x, wr, wi, f, as, bs,
+                                                       cw, sw, m);
+          asm volatile("" : : "f"(o));
+        }
+        asm volatile("" : : "f"(m));
+        phasor_renorm(wr, wi);
+      }
+    }
+    p = wr + wi;
+  } else if (kChain == 2) {
     float xs[kNcoTile];
     float out[kNcoTile];
 #pragma unroll
@@ -268,6 +558,25 @@ __global__ void nco_chain_probe_kernel(float* result, long long* cycles,
   cycles[threadIdx.x] = t1 - t0;
 }
 
+// The launch of either form: `lanes` rows a block (nco_lanes), `blocks`
+// blocks.
+inline cudaError_t nco_grid(long long rows, int* lanes_out,
+                            unsigned* blocks_out) {
+  int dev = 0;
+  int sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return e;
+  const int lanes = rc::nco_lanes(rows, sms);
+  const long long blocks = (rows + lanes - 1) / lanes;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  *lanes_out = lanes;
+  *blocks_out = (unsigned)blocks;
+  return cudaSuccess;
+}
+
 }  // namespace rc
 
 extern "C" int rc_nco_pll(const void* x, long long x_stride,
@@ -276,16 +585,10 @@ extern "C" int rc_nco_pll(const void* x, long long x_stride,
                           long long rows, long long n, float kp, float ki,
                           float w0, void* stream) {
   if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  int sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  int lanes = 0;
+  unsigned blocks = 0;
+  const cudaError_t e = rc::nco_grid(rows, &lanes, &blocks);
   if (e != cudaSuccess) return (int)e;
-  const int lanes = rc::nco_lanes(rows, sms);
-  const long long blocks = (rows + lanes - 1) / lanes;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   rc::NcoPll p;
   p.x = (const float*)x;
   p.x_stride = x_stride;
@@ -305,9 +608,54 @@ extern "C" int rc_nco_pll(const void* x, long long x_stride,
                    (x_stride % 4 == 0) && (n % 4 == 0);
   const cudaStream_t s = (cudaStream_t)stream;
   if (vec) {
-    rc::nco_pll_kernel<true><<<(unsigned)blocks, lanes, 0, s>>>(p);
+    rc::nco_pll_kernel<true><<<blocks, lanes, 0, s>>>(p);
   } else {
-    rc::nco_pll_kernel<false><<<(unsigned)blocks, lanes, 0, s>>>(p);
+    rc::nco_pll_kernel<false><<<blocks, lanes, 0, s>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The phasor form: the subcarrier -sin 2p of the loop over the raw pilot
+// `x`, each row scaled by `scale` (1 / RMS); ak = (ki + kp) / sqrt(2), ai =
+// ki / sqrt(2) and (cw, sw) = e^{j w0}, float32 from the host. `redone`
+// (one unsigned 64-bit count on the device) is added to once a tile done
+// again with sincosf.
+extern "C" int rc_nco_pll_subcarrier(const void* x, long long x_stride,
+                                     const void* scale, const void* phase_in,
+                                     const void* freq_in, void* sub,
+                                     void* phase_out, void* freq_out,
+                                     void* redone, long long rows,
+                                     long long n, float ak, float ai,
+                                     float cw, float sw, void* stream) {
+  if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  int lanes = 0;
+  unsigned blocks = 0;
+  const cudaError_t e = rc::nco_grid(rows, &lanes, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  rc::NcoPhasor p;
+  p.x = (const float*)x;
+  p.x_stride = x_stride;
+  p.scale = (const float*)scale;
+  p.phase_in = (const float*)phase_in;
+  p.freq_in = (const float*)freq_in;
+  p.sub = (float*)sub;
+  p.phase_out = (float*)phase_out;
+  p.freq_out = (float*)freq_out;
+  p.redone = (unsigned long long*)redone;
+  p.rows = rows;
+  p.n = n;
+  p.ak = ak;
+  p.ai = ai;
+  p.cw = cw;
+  p.sw = sw;
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) & 15) == 0) &&
+                   ((reinterpret_cast<uintptr_t>(sub) & 15) == 0) &&
+                   (x_stride % 4 == 0) && (n % 4 == 0);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (vec) {
+    rc::nco_pll_kernel_phasor<true><<<blocks, lanes, 0, s>>>(p);
+  } else {
+    rc::nco_pll_kernel_phasor<false><<<blocks, lanes, 0, s>>>(p);
   }
   return (int)cudaGetLastError();
 }
@@ -333,6 +681,14 @@ extern "C" int rc_nco_chain_probe(void* result, void* cycles, long long n,
       break;
     case 2:
       rc::nco_chain_probe_kernel<2><<<1, lanes, 0, s>>>(r, c, n, x, kp, ki,
+                                                        w0);
+      break;
+    case 3:
+      rc::nco_chain_probe_kernel<3><<<1, lanes, 0, s>>>(r, c, n, x, kp, ki,
+                                                        w0);
+      break;
+    case 4:
+      rc::nco_chain_probe_kernel<4><<<1, lanes, 0, s>>>(r, c, n, x, kp, ki,
                                                         w0);
       break;
     default:

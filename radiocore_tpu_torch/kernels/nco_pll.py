@@ -25,13 +25,32 @@ rad before the loop pulls them back, and the kernel's cosine (``__cosf``;
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
 plain loop. :func:`nco_chain_probe` times the bare chain on the card, the
 kernel's least time a sample; no path calls it.
+
+The phasor form (:func:`nco_pll_subcarrier_rows`, the kernel
+``nco_pll_kernel_phasor``) runs the same loop for a caller that needs the
+38 kHz subcarrier ``−sin 2φ`` and not the phase: it carries the NCO as
+the phasor ``w = √2·e^{jφ}``, reads the raw pilot with a per-row scale
+(1/RMS), and per sample, with ``u = w·e^{jw0}`` and ``h = ψ/2``::
+
+    ψ = f + (kp + ki)·s·x·Re w/√2;  f' = f + ki·s·x·Re w/√2
+    sub[t] = −Re w·Im w
+    w' = (ur − ψ·(ui + h·ur), ui + ψ·(ur − h·ui))
+
+which is ``u·(1 − ψ²/2 + jψ)``, ``u·e^{jψ}`` within 2^-26 for ``|ψ| ≤``
+:data:`PSI_MAX`. A tile of :data:`PHASOR_TILE` samples in which some
+``|ψ|`` passed that is done again with the exact rotation and counted on
+:data:`redone`; ``|w|²`` goes back to 2 once a tile. The state crosses
+chunks as the phase (``atan2`` at the end, ``sin``/``cos`` at the
+start). :func:`nco_pll_subcarrier_plain` is that arithmetic in float32
+on the CPU.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from radiocore_tpu_torch.kernels.fft_rows import LaunchCounter
@@ -44,10 +63,56 @@ TILE = 48
 # The chains rc_nco_chain_probe times (csrc/nco_pll.cu
 # nco_chain_probe_kernel): the bare chain, FMUL -> MUFU.COS -> FFMA; the
 # same with the wrap before the cosine; the kernel's whole sample without
-# its loads and stores.
-PROBE_CHAINS = ("bare", "wrap", "sample")
+# its loads and stores; the phasor form's bare recurrence (four dependent
+# FP32 operations a sample); the phasor kernel's whole sample without its
+# loads and stores.
+PROBE_CHAINS = ("bare", "wrap", "sample", "phasor", "phasor_sample")
+
+# The phasor form's series limit (csrc/nco_pll.cu kNcoPsiMax): the series
+# (1 - psi^2/2, psi) is e^{j psi} within 2^-26 up to here.
+PSI_MAX = 2.0 ** -8
+
+# Samples of a tile of the phasor form (csrc/nco_pll.cu kNcoPhasorTile): the
+# series' guard and |w|'s renormalisation act once a tile.
+PHASOR_TILE = 80
 
 launches = LaunchCounter()
+
+
+class TileCounter:
+    """Tiles of the phasor form done again with the exact rotation, one
+    count a device: a persistent int64 on that device, added to by the
+    kernel (so it counts under graph replay too) or by the plain loop."""
+
+    def __init__(self) -> None:
+        self._counts: Dict[torch.device, torch.Tensor] = {}
+
+    def tensor(self, device: torch.device | str) -> torch.Tensor:
+        """The count on ``device``, made there at first use, which must
+        not be inside a CUDA graph capture (a step warms up first)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        t = self._counts.get(device)
+        if t is None:
+            if (device.type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    "nco_pll.redone: first use on a device inside a graph "
+                    "capture; run the phasor once outside it first")
+            t = torch.zeros(1, dtype=torch.int64, device=device)
+            self._counts[device] = t
+        return t
+
+    def read(self, device: torch.device | str = "cpu") -> int:
+        """The count on ``device`` so far, after the work queued there."""
+        t = self.tensor(device)
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        return int(t.item())
+
+
+redone = TileCounter()
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -127,6 +192,175 @@ def nco_pll_track_rows(pilot: torch.Tensor, kp: float, ki: float, w0: float,
     return nco_pll_track_plain(pilot, kp, ki, w0, phase, freq)
 
 
+def phasor_constants(kp: float, ki: float, w0: float
+                     ) -> Tuple[float, float, float, float]:
+    """The phasor form's constants as float32 values: the gains over √2
+    (the phasor's length), ``(ki + kp)/√2`` (``ki + kp`` summed in
+    float32, as the phase form's kernel does) and ``ki/√2``, and ``(cw,
+    sw) = e^{j w0}``, each computed in float64 and rounded once."""
+    f32 = np.float32
+    kk = float(f32(ki) + f32(kp))
+    return (float(f32(kk / math.sqrt(2.0))),
+            float(f32(float(f32(ki)) / math.sqrt(2.0))),
+            float(f32(math.cos(w0))), float(f32(math.sin(w0))))
+
+
+def _phasor_span(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
+                 f: torch.Tensor, rot: torch.Tensor, hist: torch.Tensor,
+                 psis: torch.Tensor, mode: str) -> None:
+    """Samples ``a.shape[0]`` of the phasor loop in place on ``w``
+    ``(2, rows)`` (Re, Im) and ``f``: each sample's ``w`` before its
+    rotation into ``hist`` ``(n, 2, rows)``, its ``psi`` into ``psis``
+    ``(n, rows)``. ``mode``: ``"series"``, ``"exact"``, or ``"either"``
+    (the series below :data:`PSI_MAX`, cos and sin above it)."""
+    wr, wi = w.unbind(0)
+    c = torch.empty_like(f)
+    s = torch.empty_like(f)
+    qr = torch.empty_like(f)
+    qi = torch.empty_like(f)
+    u = torch.empty_like(w)
+    ur, ui = u.unbind(0)
+    for at, bt, ht, psi in zip(a.unbind(0), b.unbind(0), hist.unbind(0),
+                               psis.unbind(0)):
+        ht.copy_(w)
+        torch.addcmul(f, at, wr, out=psi)
+        f.addcmul_(bt, wr)
+        torch.mm(rot, w, out=u)                  # w e^{j w0}
+        far = None
+        if mode != "series":
+            torch.cos(psi, out=c)
+            torch.sin(psi, out=s)
+            if mode == "either":
+                far = psi.abs() > PSI_MAX
+            else:
+                torch.mul(u, c, out=w)
+                wr.addcmul_(ui, s, value=-1.0)
+                wi.addcmul_(ur, s)
+                continue
+        # u (1 - psi^2/2 + j psi) = (ur - psi qr, ui + psi qi)
+        torch.addcmul(ui, psi, ur, value=0.5, out=qr)
+        torch.addcmul(ur, psi, ui, value=-0.5, out=qi)
+        if far is None:
+            torch.addcmul(ur, psi, qr, value=-1.0, out=wr)
+            torch.addcmul(ui, psi, qi, out=wi)
+        else:
+            w.copy_(torch.where(
+                far, torch.stack([ur * c - ui * s, ui * c + ur * s]),
+                torch.stack([torch.addcmul(ur, psi, qr, value=-1.0),
+                             torch.addcmul(ui, psi, qi)])))
+
+
+def nco_pll_subcarrier_plain(pilot: torch.Tensor, scale: torch.Tensor,
+                             kp: float, ki: float, w0: float,
+                             phase: torch.Tensor, freq: torch.Tensor
+                             ) -> Result:
+    """Plain version of the phasor form: a Python loop over the last axis
+    of ``pilot`` ``(..., n)`` (the raw pilot; ``scale`` ``(...)`` its
+    1/RMS a row), the leading axes as the vector, in float32. Returns the
+    subcarrier ``−sin 2φ`` ``(..., n)`` and the new ``phase`` (in
+    (−π, π]) and ``freq`` ``(...)``. It walks the kernel's tiles: a tile
+    on the series, done again with the exact rotation for the rows whose
+    ``|psi|`` passed :data:`PSI_MAX` in it (counted on :data:`redone`),
+    then ``|w|²`` back to 2; the ragged end sample by sample."""
+    f32 = torch.float32
+    lead = tuple(pilot.shape[:-1])
+    n = int(pilot.shape[-1])
+    ak, ai, cw, sw = phasor_constants(kp, ki, w0)
+    xs = pilot.to(f32).reshape(-1, n).t().contiguous()        # (n, rows)
+    s_row = scale.to(f32).reshape(-1)
+    a_all = xs * (s_row * torch.tensor(ak, dtype=f32))
+    b_all = xs * (s_row * torch.tensor(ai, dtype=f32))
+    ph = phase.to(f32).reshape(-1)
+    w = torch.stack([torch.cos(ph), torch.sin(ph)]) * torch.tensor(
+        math.sqrt(2.0), dtype=f32)
+    f = freq.to(f32).reshape(-1).clone()
+    rot = torch.tensor([[cw, -sw], [sw, cw]], dtype=f32)
+    hist = torch.empty((n, 2, xs.shape[1]), dtype=f32)
+    psis = torch.empty((PHASOR_TILE, xs.shape[1]), dtype=f32)
+    count = 0
+    end = n - n % PHASOR_TILE
+    for t0 in range(0, end, PHASOR_TILE):
+        t1 = t0 + PHASOR_TILE
+        w0_, f0 = w.clone(), f.clone()
+        _phasor_span(a_all[t0:t1], b_all[t0:t1], w, f, rot, hist[t0:t1],
+                     psis, "series")
+        far = psis.abs().amax(0) > PSI_MAX
+        if bool(far.any()):
+            h_x = torch.empty_like(hist[t0:t1])
+            _phasor_span(a_all[t0:t1], b_all[t0:t1], w0_, f0, rot, h_x,
+                         psis, "exact")
+            w = torch.where(far, w0_, w)
+            f = torch.where(far, f0, f)
+            hist[t0:t1] = torch.where(far, h_x, hist[t0:t1])
+            count += int(far.sum())
+        w.mul_(torch.addcmul(torch.full_like(f, 1.5), (w * w).sum(0),
+                             torch.full_like(f, -0.25)))
+    _phasor_span(a_all[end:], b_all[end:], w, f, rot, hist[end:], psis,
+                 "either")
+    redone.tensor("cpu").add_(count)
+    sub = (-hist[:, 0]).mul_(hist[:, 1])
+    return (sub.t().reshape(lead + (n,)),
+            torch.atan2(w[1], w[0]).reshape(lead), f.reshape(lead))
+
+
+def _phasor_kernel(pilot: torch.Tensor, scale: torch.Tensor, kp: float,
+                   ki: float, w0: float, phase: torch.Tensor,
+                   freq: torch.Tensor) -> Result:
+    from radiocore_tpu_torch.kernels import build
+    if pilot.dtype != torch.float32:
+        raise TypeError(f"nco_pll_subcarrier_rows: kernel takes float32, "
+                        f"got {pilot.dtype}")
+    lead = tuple(pilot.shape[:-1])
+    n = int(pilot.shape[-1])
+    for name, s in (("scale", scale), ("phase", phase), ("freq", freq)):
+        if (not s.is_cuda or s.dtype != torch.float32
+                or tuple(s.shape) != lead):
+            raise ValueError(
+                f"nco_pll_subcarrier_rows: {name} must be float32 CUDA of "
+                f"shape {lead}, got {s.dtype} {tuple(s.shape)} on {s.device}")
+    if n < 1 or pilot.numel() == 0:
+        raise ValueError(f"nco_pll_subcarrier_rows: empty pilot "
+                         f"{tuple(pilot.shape)}")
+    x2 = pilot.reshape(-1, n)
+    if x2.stride(-1) != 1 and n > 1:
+        raise ValueError("nco_pll_subcarrier_rows: pilot needs unit stride "
+                         "along its last axis")
+    rows = x2.shape[0]
+    s_in = scale.reshape(-1).contiguous()
+    p_in = phase.reshape(-1).contiguous()
+    f_in = freq.reshape(-1).contiguous()
+    sub = torch.empty((rows, n), dtype=torch.float32, device=pilot.device)
+    p_out = torch.empty_like(p_in)
+    f_out = torch.empty_like(f_in)
+    count = redone.tensor(pilot.device)
+    lib = build.library()
+    err = lib.rc_nco_pll_subcarrier(
+        x2.data_ptr(), x2.stride(0), s_in.data_ptr(), p_in.data_ptr(),
+        f_in.data_ptr(), sub.data_ptr(), p_out.data_ptr(), f_out.data_ptr(),
+        count.data_ptr(), rows, n, *phasor_constants(kp, ki, w0),
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"rc_nco_pll_subcarrier(rows={rows}, n={n})")
+    launches.count += 1
+    return sub.reshape(pilot.shape), p_out.reshape(lead), f_out.reshape(lead)
+
+
+def nco_pll_subcarrier_rows(pilot: torch.Tensor, scale: torch.Tensor,
+                            kp: float, ki: float, w0: float,
+                            phase: torch.Tensor, freq: torch.Tensor
+                            ) -> Result:
+    """The phasor form along the last axis of ``pilot`` with any leading
+    batch dims, each row scaled by ``scale``: the kernel on CUDA,
+    :func:`nco_pll_subcarrier_plain` on the CPU. Returns the subcarrier
+    and the new phase and frequency."""
+    kp, ki, w0 = float(kp), float(ki), float(w0)
+    if pilot.is_cuda:
+        return _phasor_kernel(pilot, scale, kp, ki, w0, phase, freq)
+    if pilot.device.type != "cpu":
+        raise ValueError(f"nco_pll_subcarrier_rows: no kernel for "
+                         f"{pilot.device}")
+    return nco_pll_subcarrier_plain(pilot, scale, kp, ki, w0, phase, freq)
+
+
 def nco_chain_probe(n: int, chain: str, lanes: int, kp: float, ki: float,
                     w0: float, device: torch.device | str = "cuda"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,10 +369,10 @@ def nco_chain_probe(n: int, chain: str, lanes: int, kp: float, ki: float,
     :data:`PROBE_CHAINS`) on a pilot sample of 1 and the gains, all in
     registers. Returns ``(result, cycles)`` on the card, one value per
     lane: the final phase (kept so that the compiler keeps the chain) and
-    the SM cycles the loop took (``clock64``); the chain ``sample`` runs
-    ``n // TILE`` tiles of :data:`TILE` links. Does not synchronise and
-    counts no launch. A measuring aid for the card: there is no plain
-    version."""
+    the SM cycles the loop took (``clock64``). Does not synchronise and
+    counts no launch; the chain ``sample`` runs ``n // TILE`` tiles,
+    ``phasor_sample`` ``n // PHASOR_TILE``. A measuring aid for the card:
+    there is no plain version."""
     from radiocore_tpu_torch.kernels import build
     device = torch.device(device)
     if device.type != "cuda":

@@ -42,8 +42,8 @@ from radiocore_tpu_torch.ops.deemphasis import (deemphasis_apply,
                                                 deemphasis_init)
 from radiocore_tpu_torch.ops.demod import quadrature_demod
 from radiocore_tpu_torch.ops.fir import zero_phase_fir
-from radiocore_tpu_torch.ops.nco_pll import (nco_pll_track, pll_design,
-                                             pll_init, pll_subcarrier)
+from radiocore_tpu_torch.ops.nco_pll import (nco_pll_subcarrier, pll_design,
+                                             pll_init)
 from radiocore_tpu_torch.ops.resample import (_fold_window_onesided,
                                               real_resample_weights,
                                               resample_real)
@@ -94,8 +94,8 @@ def make_wbfm_step(input_size: int, output_size: int,
     ``needed_bins``, the highest bin it reads. ``pll='nco'`` (exact mode
     only) tracks the pilot with the feedback loop of ``ops/nco_pll.py``
     and carries its state as ``state["pll"]``, inside a
-    ``runtime.profiling`` span ``pll`` (the normalisation, the loop and
-    the subcarrier). On a dead station (zero
+    ``runtime.profiling`` span ``pll`` (the pilot's RMS and the loop's
+    phasor form, which writes the subcarrier). On a dead station (zero
     IQ) the exact mode with the analytic pilot gives NaN audio, the fast
     modes silence. ``routes`` (None: the defaults) routes the transforms
     and FIRs (module docstring).
@@ -130,13 +130,8 @@ def make_wbfm_step(input_size: int, output_size: int,
             # pilot-band noise that the analytic path passes straight
             # into the subcarrier's phase.
             with span("pll"):
-                rms = torch.sqrt(torch.mean(pilot * pilot, dim=-1,
-                                            keepdim=True))
-                norm = pilot / torch.clamp_min(
-                    rms, torch.finfo(torch.float32).tiny)
-                traj, extra["pll"] = nco_pll_track(norm, nco_gains,
-                                                   state["pll"])
-                subcarrier = pll_subcarrier(traj, 2, "imag")
+                subcarrier, extra["pll"] = nco_pll_subcarrier(
+                    pilot, nco_gains, state["pll"])
         else:
             subcarrier = pll_harmonic(analytic_signal(pilot, routes), 2,
                                       "imag")

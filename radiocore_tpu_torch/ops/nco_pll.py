@@ -6,7 +6,9 @@ accuracy-mode alternative to the analytic-signal pilot tracker: carrier
 tracking with a controlled loop bandwidth, its state streaming across
 chunks. The recurrence is sequential per station; on a CUDA tensor it
 runs as the kernel K-NCO (``kernels/nco_pll.py``), on the CPU as that
-module's plain loop.
+module's plain loop. :func:`nco_pll_track` returns the phase trajectory;
+:func:`nco_pll_subcarrier`, for the stereo decoder, the subcarrier alone,
+by K-NCO's phasor form (no phase on the per-sample chain).
 """
 
 from __future__ import annotations
@@ -62,6 +64,30 @@ def nco_pll_track(pilot: torch.Tensor, gains: PLLGains,
     traj, phase, freq = knco.nco_pll_track_rows(
         pilot.to(torch.float32), kp, ki, w0, state.phase, state.freq)
     return traj, PLLState(phase=phase, freq=freq)
+
+
+def nco_pll_subcarrier(pilot: torch.Tensor, gains: PLLGains,
+                       state: PLLState) -> Tuple[torch.Tensor, PLLState]:
+    """Track the pilot and return the 38 kHz subcarrier it gives, with the
+    new state: what ``pll_subcarrier(nco_pll_track(pilot / rms, ...)[0],
+    2, "imag")`` gives, by the phasor form of the loop.
+
+    ``pilot`` (..., N) float32 as the bandpass gives it: each row is
+    scaled by 1 / its RMS over the chunk (floored at float32's ``tiny``)
+    inside the loop, so the gains hold. The result is ``−sin(2 φ[n])``
+    for the phase ``φ[n]`` the detector saw (the convention of
+    :func:`pll_subcarrier`); the state carries the phase, as
+    :func:`nco_pll_track`'s does. On a CUDA tensor the phasor kernel,
+    on the CPU its plain loop (``kernels/nco_pll.py``).
+    """
+    kp, ki, w0 = gains
+    pilot = pilot.to(torch.float32)
+    rms = torch.sqrt(torch.mean(pilot * pilot, dim=-1))
+    scale = torch.reciprocal(torch.clamp_min(
+        rms, torch.finfo(torch.float32).tiny))
+    sub, phase, freq = knco.nco_pll_subcarrier_rows(
+        pilot, scale, kp, ki, w0, state.phase, state.freq)
+    return sub, PLLState(phase=phase, freq=freq)
 
 
 def pll_subcarrier(phase_traj: torch.Tensor, mult: int = 2,

@@ -98,7 +98,8 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     from radiocore_tpu_torch.kernels import (build, extract, extract_demod,
                                              fft_mixed, fft_rows, fir)
     from radiocore_tpu_torch.ops.fir import zero_phase_fir
-    from radiocore_tpu_torch.ops.nco_pll import (nco_pll_track, pll_design,
+    from radiocore_tpu_torch.ops.nco_pll import (nco_pll_subcarrier,
+                                                 nco_pll_track, pll_design,
                                                  pll_init)
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
 
@@ -122,6 +123,8 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     zero_phase_fir(spec.real[:40_000].reshape(2, 20_000), np.ones(41) / 41)
     nco_pll_track(spec.real[:1024].reshape(2, 512), pll_design(262_144),
                   pll_init((2,), device="cpu"))
+    nco_pll_subcarrier(spec.real[:1024].reshape(2, 512), pll_design(262_144),
+                       pll_init((2,), device="cpu"))
     c, sc = 4, 65_536
     offs = [int(-(c * sc // 2 - sc // 2) + i * sc) for i in range(c)]
     band = torch.from_numpy((rng.standard_normal(c * sc) + 1j

@@ -148,12 +148,12 @@ def test_analytic_is_the_default_step(pool, mode):
 def test_traced_step_records_the_pll_span(monkeypatch):
     """An eager traced step opens ``pll`` inside ``demod_tail``; in a
     profile its range is ``radiocore.pll``. The analytic step has none.
-    The loop itself is stood in for by a constant trajectory: profiled,
+    The loop itself is stood in for by a constant subcarrier: profiled,
     its plain version's half a million small operations take minutes."""
     from radiocore_tpu_torch.models import wbfm
     rec = profiling.Recorder()
     monkeypatch.setattr(profiling, "RECORDER", rec)
-    monkeypatch.setattr(wbfm, "nco_pll_track",
+    monkeypatch.setattr(wbfm, "nco_pll_subcarrier",
                         lambda pilot, gains, state: (torch.zeros_like(pilot),
                                                      state))
     tiny = dict(CONFIG, stations=2, station_rate=48_000,
