@@ -49,21 +49,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    stations over 2 chunks each (launch counters, chunk 1 against the
    CPU). The main and ``spec`` steps are also traced with
    ``torch.profiler`` (device time per kernel, busy and idle share);
-8. runs K-NCO (the feedback pilot loop) against its plain PyTorch loop at
-   8 x 4096 and on rows off a 16-byte boundary (each with a NaN row and a
-   row started 8 turns away), and at 64 x 262 144, on rms-normalised
-   19 kHz pilots with a frequency offset and noise, against a float64
-   model of the loop for a few rows, beside the float32 scan's own
-   distance, modulo 2 pi; prints the opcodes of its chain and guard from
-   ``cuobjdump -sass``; times it (CUDA events and ``torch.profiler``)
-   beside its bytes bound and its latency bound (the bare chain timed by
-   the probe ``rc_nco_chain_probe``) and prints the cycles it takes per
-   sample; then the phasor form the nco step launches
-   (``nco_pll_subcarrier_rows``) against its plain loop on the same pilots
-   at 64 x 262 144 over two chunks (acquiring, then from the carried
-   state), on rows off a 16-byte boundary at an odd length and at a 5 kHz
-   loop (the tiles each redoes counted alike), timed beside its bytes
-   bound and the phasor chain's latency;
+8. runs K-NCO (the feedback pilot loop), one kernel with two outputs. Its
+   phase output (``nco_pll_track_rows``) against its plain PyTorch loop
+   at 8 x 4096 and on rows off a 16-byte boundary (each with a NaN row
+   and a row started 8 turns away), the float32 scan's distance beside
+   it, and at 64 x 262 144, on rms-normalised 19 kHz pilots with a
+   frequency offset and noise, against a float64 model of the loop for a
+   few rows, beside the float32 scan's own distance, modulo 2 pi; prints
+   each instantiation's opcodes and the md5 of its instruction text from
+   ``cuobjdump -sass``; times the phase output at 64 x 262 144 and
+   24 x 240 000 and the probe's chains (``rc_nco_chain_probe``); then the
+   subcarrier output the nco step launches (``nco_pll_subcarrier_rows``)
+   against its plain loop on the same pilots at 64 x 262 144 over two
+   chunks (acquiring, then from the carried state), on rows off a 16-byte
+   boundary at an odd length and at a 5 kHz loop (the tiles each redoes
+   counted alike), timed beside its bytes bound and the chain's latency;
 9. runs K-FIR at the pilot bandpass's shape (41 taps, 64 x 262 390, the
    odd extension included) against float64, and ``zero_phase_fir`` on the
    card against the port on the CPU;
@@ -222,10 +222,9 @@ XSPEC_REL_MAX = 3e-5    # K-XDEMOD-SPEC, max abs / max |ref|
 ATAN_ABS_MAX = 2e-6   # the discriminator against float64 atan2, rad
 E2E_ABS_MAX = 1e-4    # card against CPU, audio of chunk 1
 SNR_MIN_DB = 20.0     # per stereo tone, as the repository's verify drive
-# K-NCO. Against its plain loop (the scan's order): the kernel puts the
-# frequency update into the phase update, fuses multiply-adds and takes
-# the hardware cosine, and two float32 loops that round differently drift
-# apart by about 1.4e-5 rad before the loop's feedback pulls them back.
+# K-NCO against its plain loop (the same arithmetic in float32; the kernel
+# fuses multiply-adds): two float32 loops that round differently drift
+# apart by about 1e-5 rad before the loop's feedback pulls them back.
 # Against the float64 model the loop's feedback holds float32 rounding
 # down (the float32 scan itself is printed beside the kernel).
 NCO_PLAIN_MAX = 5e-5  # rad, modulo 2 pi
@@ -233,8 +232,8 @@ NCO_F64_MAX = 2e-4    # rad, modulo 2 pi
 NCO_SHORT = (8, 4096)
 NCO_DEAD = 3          # a NaN pilot row in the short check
 NCO_WILD = 5          # a row started 8 turns away (about -+50 rad)
-# K-NCO's phasor form (what the nco step launches) against its plain loop:
-# the phase as above, the subcarrier -sin 2p by twice that.
+# K-NCO's subcarrier output (what the nco step launches) against its plain
+# loop: the phase as above, the subcarrier -sin 2p by twice that.
 NCO_SUB_MAX = 2 * NCO_PLAIN_MAX
 NCO_OFF_N = 48_003    # an odd length, rows off a 16-byte boundary
 # Acquiring from a random phase, two float32 loops part by up to about
@@ -1355,13 +1354,15 @@ def nco_model(pilot, gains, phase, freq, dtype):
 
 
 def nco_sass_summary(lib_path) -> str:
-    """The opcodes of K-NCO's instantiations in the built library that
-    show its chain and its guard (``cuobjdump -sass``): the special-function
-    unit's (MUFU, of which the hardware cosines), the fused multiply-adds,
-    the branches and calls (cosf's guard is a branch if they come one a
-    sample) and the selects; and the same in the function's largest
-    straight-line block (between labels and branches), the tile's samples
-    unrolled: the phasor form's has no MUFU."""
+    """K-NCO's instantiations in the built library (``cuobjdump -sass``):
+    for each, the opcodes that show its chain and its guard (the
+    special-function unit's, MUFU; the fused multiply-adds; the branches
+    and calls; the selects), the same in its largest straight-line block
+    (between labels and branches; the tile's samples unrolled, where the
+    subcarrier's has no MUFU), and the md5 of its instruction text (each
+    line's whitespace collapsed), which two builds share when their code
+    for it is the same."""
+    import hashlib
     import re
     tool = Path(build_tool("cuobjdump"))
     out = subprocess.run([str(tool), "-sass", str(lib_path)],
@@ -1376,8 +1377,11 @@ def nco_sass_summary(lib_path) -> str:
         name = part.split("\n", 1)[0].strip()
         if "nco_pll_kernel" not in name:
             continue
-        ops, blocks, block = [], [], []
-        for line in part.splitlines():
+        ops, blocks, block, text = [], [], [], []
+        for line in part.splitlines()[1:]:
+            if "/*" in line:
+                # The columns' widths follow the longest name in the file.
+                text.append(" ".join(line.split()))
             if re.match(r"\s*\.L_x_\d+:", line):
                 blocks.append(block)
                 block = []
@@ -1396,12 +1400,14 @@ def nco_sass_summary(lib_path) -> str:
         def count(seq):
             return ", ".join(f"{k} {sum(1 for o in seq if o.startswith(k))}"
                              for k in kinds)
-        form = "nco_pll_kernel_phasor" if "phasor" in name else \
-            "nco_pll_kernel"
-        vec = "true" if "ILb1E" in name else "false"
-        lines.append(f"{form}<{vec}>: {len(ops)} instructions, {count(ops)}; "
-                     f"largest straight-line block {len(big)} instructions, "
-                     f"{count(big)}")
+        kernel = re.search(r"nco_pll_kernel[a-z_]*", name).group(0)
+        args = ", ".join("true" if t == "b" and v == "1" else
+                         "false" if t == "b" else v
+                         for t, v in re.findall(r"L([bi])(\d+)E", name))
+        md5 = hashlib.md5("\n".join(text).encode()).hexdigest()
+        lines.append(f"{kernel}<{args}>: md5 {md5}, {len(ops)} "
+                     f"instructions, {count(ops)}; largest straight-line "
+                     f"block {len(big)} instructions, {count(big)}")
     if not lines:
         raise AssertionError("cuobjdump shows no nco_pll_kernel")
     return "; ".join(lines)
@@ -1423,12 +1429,14 @@ def sm_clock_mhz():
 
 
 def check_nco(device, gen) -> dict:
-    """Phase 8: K-NCO against its plain loop at a short length (aligned
-    rows and rows off a 16-byte boundary, each with a NaN row and a row
-    started 8 turns away) and, at the nco path's shape, against a float64
-    model of the loop beside the float32 scan's own distance; its time
-    beside its bytes bound and its latency bound (the bare chain timed by
-    the probe)."""
+    """Phase 8: K-NCO. Its phase output (``nco_pll_track_rows``) against
+    its plain loop at a short length (aligned rows and rows off a 16-byte
+    boundary, each with a NaN row and a row started 8 turns away), the
+    float32 scan's distance printed beside it; at the nco path's shape
+    against a float64 model of the loop beside the float32 scan's own
+    distance; the phase output's time there and at the wbfm24 cells'
+    shape; the probe's chains; then the subcarrier output
+    (:func:`check_nco_phasor`), whose entry it returns."""
     import numpy as np
     import torch
     from radiocore_tpu_torch.kernels import build, nco_pll as knco
@@ -1440,43 +1448,38 @@ def check_nco(device, gen) -> dict:
     wide = pilots(gen, rows, n + 8, device)
     wide[NCO_DEAD] = float("nan")
     live = [r for r in range(rows) if r != NCO_DEAD]
-    short = {}
     for what, x, turns in ((f"{rows}x{n}", wide[:, :n].contiguous(), -8),
                            (f"{rows}x{n + 1} rows off a 16-byte boundary",
                             wide[:, 1:n + 2], 8)):
         phase0 = 2.0 * torch.rand(rows, generator=gen, device=device) - 1.0
         phase0[NCO_WILD] += turns * 2 * math.pi
         freq0 = 1e-5 * torch.randn(rows, generator=gen, device=device)
-        got = knco.nco_pll_track_rows(x, *gains, phase0, freq0)
-        ref = knco.nco_pll_track_plain(x, *gains, phase0, freq0)
+        got = [v.cpu() for v in knco.nco_pll_track_rows(x, *gains, phase0,
+                                                        freq0)]
+        held = (x.cpu(), *gains, phase0.cpu(), freq0.cpu())
+        ref = knco.nco_pll_phasor_plain(held[0], torch.ones(rows),
+                                        *held[1:], "phase")
+        scan = knco.nco_pll_track_plain(*held)
         errs = (float(wrapped(got[0][live], ref[0][live]).abs().max()),
                 float(wrapped(got[1][live], ref[1][live]).abs().max()),
                 max_abs(got[2][live], ref[2][live]))
         dead = [bool(v[NCO_DEAD, 1:].isnan().all()) and
-                bool(v[NCO_DEAD, 0] == phase0[NCO_DEAD]) and
+                bool(v[NCO_DEAD, 0] == held[4][NCO_DEAD]) and
                 bool(p[NCO_DEAD].isnan()) and bool(f[NCO_DEAD].isnan())
                 for v, p, f in (got, ref)]
         wild = float(wrapped(got[0][NCO_WILD], ref[0][NCO_WILD]).abs().max())
-        ms = time_ms(lambda: knco.nco_pll_track_rows(x, *gains, phase0,
-                                                     freq0), reps=20, warmup=5)
-        print(f"[kernel] K-NCO {what} against the plain loop: trajectory "
-              f"{errs[0]:.3e} rad, final phase {errs[1]:.3e} rad (bound "
-              f"{NCO_PLAIN_MAX:.0e}, modulo 2 pi), final freq {errs[2]:.3e} "
-              f"(bound 1e-7); row {NCO_WILD} started at "
+        scan_err = float(wrapped(got[0][live], scan[0][live]).abs().max())
+        print(f"[kernel] K-NCO phase {what} against its plain loop: "
+              f"trajectory {errs[0]:.3e} rad, final phase {errs[1]:.3e} rad "
+              f"(bound {NCO_PLAIN_MAX:.0e}, modulo 2 pi), final freq "
+              f"{errs[2]:.3e} (bound 1e-7); row {NCO_WILD} started at "
               f"{float(phase0[NCO_WILD]):+.2f} rad: {wild:.3e} rad; NaN row "
-              f"{NCO_DEAD} NaN in kernel and loop: {dead}; kernel "
-              f"{ms:.3f} ms")
+              f"{NCO_DEAD} NaN in kernel and loop: {dead}; the float32 scan "
+              f"(nco_pll_track_plain) {scan_err:.3e} rad from the kernel")
         if not (max(errs[:2]) <= NCO_PLAIN_MAX and errs[2] <= 1e-7
                 and all(dead)):
-            raise AssertionError(f"K-NCO {what} differs from its plain "
-                                 f"loop: {errs}, NaN row {dead}")
-        short.setdefault("err", errs[0])
-        short.setdefault("ms", ms)
-        short["ms_off"] = ms
-        if "plain_ms" not in short:
-            short["plain_ms"] = time_ms(
-                lambda: knco.nco_pll_track_plain(x, *gains, phase0, freq0),
-                reps=2, warmup=0)
+            raise AssertionError(f"K-NCO phase {what} differs from its "
+                                 f"plain loop: {errs}, NaN row {dead}")
     del wide
 
     # The nco path's shape: 64 stations, one second.
@@ -1507,17 +1510,39 @@ def check_nco(device, gen) -> dict:
     scan_err = dist(scan)
     # Locked: the integrator holds each row's frequency offset.
     hz = freq.double() * STATION / (2 * math.pi)
-    ms = time_ms(lambda: knco.nco_pll_track_rows(x, *gains, zeros, zeros),
-                 reps=5, warmup=1)
+    print(f"[kernel] K-NCO phase {rows}x{n} against the float64 model (rows "
+          f"{held}, {model_s:.1f} s on the host): trajectory {err:.3e} rad, "
+          f"final phase {err_p:.3e} rad (bound {NCO_F64_MAX:.0e}, modulo "
+          f"2 pi), final freq {err_f:.3e} (bound 1e-6); the float32 scan "
+          f"(NumPy) on the same rows: trajectory {scan_err[0]:.3e} rad, "
+          f"final phase {scan_err[1]:.3e} rad, final freq "
+          f"{scan_err[2]:.3e}; tracked offsets {float(hz.min()):+.2f} .. "
+          f"{float(hz.max()):+.2f} Hz")
+    if not (max(err, err_p) <= NCO_F64_MAX and err_f <= 1e-6):
+        raise AssertionError(f"K-NCO against float64: {err}, {err_p}, "
+                             f"{err_f}")
+    if not float(hz.abs().max()) < 4.0:
+        raise AssertionError(f"K-NCO did not lock: offsets {hz}")
+
+    # The phase output's time (no path runs it) at the nco path's shape
+    # and at the wbfm24 cells'.
+    times = []
+    for shape, xs in ((f"{rows}x{n}", x),
+                      (f"{len(W24_OFFSETS)}x{W24_STATION}",
+                       pilots(gen, len(W24_OFFSETS), W24_STATION, device))):
+        z = torch.zeros(xs.shape[0], device=device)
+
+        def run(xs=xs, z=z):
+            return knco.nco_pll_track_rows(xs, *gains, z, z)
+        (_, device_ms), = [(k, t) for k, t in kernel_times_ms(run, reps=3)
+                           if "nco_pll_kernel" in k]
+        times.append(f"{shape} {time_ms(run, reps=5, warmup=1):.3f} ms "
+                     f"between CUDA events, {device_ms:.3f} ms device time")
     # The SM clock while the kernel runs: some launches in flight.
     for _ in range(8):
         knco.nco_pll_track_rows(x, *gains, zeros, zeros)
     mhz = sm_clock_mhz()
     torch.cuda.synchronize()
-    (_, device_ms), = [(k, t) for k, t in kernel_times_ms(
-        lambda: knco.nco_pll_track_rows(x, *gains, zeros, zeros), reps=3)
-        if "nco_pll_kernel" in k]
-    least = bound(4 * (2 * x.numel() + 4 * rows), 30.0 * x.numel())
     # The latency bound: each chain over a row of n links, one lane and a
     # whole warp, timed by CUDA events and counted in SM cycles.
     probe = {}
@@ -1527,62 +1552,20 @@ def check_nco(device, gen) -> dict:
                 return knco.nco_chain_probe(n, chain, lanes, *gains)
             probe_ms = time_ms(run_probe, reps=3, warmup=1)
             _, cycles = run_probe()
-            tile = {"sample": knco.TILE,
-                    "phasor_sample": knco.PHASOR_TILE}.get(chain)
-            links = n - n % tile if tile else n
+            links = (n - n % knco.PHASOR_TILE if chain == "phasor_sample"
+                     else n)
             probe[chain, lanes] = (probe_ms,
                                    float(cycles.double().max()) / links)
-    latency_ms = min(probe["bare", lanes][0] for lanes in (1, 32))
-    # As many samples over 32 times the rows: whether the time follows
-    # the row length alone.
-    many = x.reshape(32 * rows, n // 32)
-    zeros_many = torch.zeros(32 * rows, device=device)
-    many_ms = time_ms(lambda: knco.nco_pll_track_rows(
-        many, *gains, zeros_many, zeros_many), reps=5, warmup=1)
-    off = x[:, 1:]     # every row off a 16-byte boundary
-    off_ms = time_ms(lambda: knco.nco_pll_track_rows(off, *gains, zeros,
-                                                     zeros), reps=5, warmup=1)
-    print(f"[kernel] K-NCO {rows}x{n} against the float64 model (rows "
-          f"{held}, {model_s:.1f} s on the host): trajectory {err:.3e} rad, "
-          f"final phase {err_p:.3e} rad (bound {NCO_F64_MAX:.0e}, modulo "
-          f"2 pi), final freq {err_f:.3e} (bound 1e-6); the float32 scan "
-          f"(NumPy) on the same rows: trajectory {scan_err[0]:.3e} rad, "
-          f"final phase {scan_err[1]:.3e} rad, final freq "
-          f"{scan_err[2]:.3e}; tracked offsets {float(hz.min()):+.2f} .. "
-          f"{float(hz.max()):+.2f} Hz")
+    print(f"[kernel] K-NCO phase output: " + "; ".join(times))
     print(f"[kernel] K-NCO chain probe over {n} links: " + "; ".join(
         f"{chain} x{lanes} lanes {pms:.3f} ms, {cyc:.1f} cycles a link"
         for (chain, lanes), (pms, cyc) in probe.items()))
-    print(f"[kernel] K-NCO {rows}x{n}: kernel {ms:.3f} ms between CUDA "
-          f"events, {device_ms:.3f} ms device time; "
-          f"{ms * 1e-3 * mhz * 1e6 / n:.1f} cycles a sample at {mhz:.0f} MHz "
-          f"(nvidia-smi clocks.sm during the run); least {latency_ms:.3f} ms "
-          f"by latency (the bare chain over a row: {latency_ms / ms:.1%}), "
-          f"{least['bound_ms']:.3f} ms by {least['bound_by']} "
-          f"({least['bound_ms'] / ms:.1%}); {rows}x{n - 1} off a 16-byte "
-          f"boundary {off_ms:.3f} ms; at {NCO_SHORT[0]}x{NCO_SHORT[1]}: "
-          f"kernel {short['ms']:.3f} ms, off a 16-byte boundary "
-          f"{short['ms_off']:.3f} ms, plain loop {short['plain_ms']:.1f} ms; "
-          f"the same samples as {32 * rows}x{n // 32}: {many_ms:.3f} ms; no "
-          f"library call")
-    if not (max(err, err_p) <= NCO_F64_MAX and err_f <= 1e-6):
-        raise AssertionError(f"K-NCO against float64: {err}, {err_p}, "
-                             f"{err_f}")
-    if not float(hz.abs().max()) < 4.0:
-        raise AssertionError(f"K-NCO did not lock: offsets {hz}")
-    # The entry's numbers are the phasor form's, the kernel the paths
-    # launch; the phase form's (nco_pll_track's trajectory, on no path)
-    # beside them.
-    phase_form = dict(max_abs_err=short["err"], ms=ms, device_ms=device_ms,
-                      plain_ms=short["plain_ms"],
-                      plain_shape=f"{NCO_SHORT[0]}x{NCO_SHORT[1]}", **least,
-                      latency_ms=latency_ms)
     return dict(**check_nco_phasor(rows, n, gains, gen, probe, mhz),
-                library_ms=None, phase_form=phase_form)
+                library_ms=None)
 
 
 def check_nco_phasor(rows, n, gains, gen, probe, mhz) -> dict:
-    """Phase 8, the phasor form: ``nco_pll_subcarrier_rows`` against
+    """Phase 8, the subcarrier output: ``nco_pll_subcarrier_rows`` against
     ``nco_pll_subcarrier_plain`` on the same pilots at the nco path's
     shape ``rows`` x ``n``, two chunks as the step runs them: the first
     acquiring from a random phase, the second from the state the kernel
@@ -1637,7 +1620,7 @@ def check_nco_phasor(rows, n, gains, gen, probe, mhz) -> dict:
                     f" and the plain loop "
                     f"{max_abs(ref[0][r0, :held_from], sub64):.3e} from the "
                     f"float64 loop) ")
-        print(f"[kernel] K-NCO phasor {what} against its plain loop: "
+        print(f"[kernel] K-NCO subcarrier {what} against its plain loop: "
               f"subcarrier {held}{err[0]:.3e} (bound {NCO_SUB_MAX:.0e}), "
               f"final phase {err[1]:.3e} rad (bound {NCO_PLAIN_MAX:.0e}, "
               f"modulo 2 pi), final freq {err[2]:.3e} (bound 1e-7); tiles "
@@ -1646,8 +1629,8 @@ def check_nco_phasor(rows, n, gains, gen, probe, mhz) -> dict:
         if not (err[0] <= NCO_SUB_MAX and err[1] <= NCO_PLAIN_MAX
                 and err[2] <= 1e-7 and redid[0] == redid[1]
                 and (redid[0] > 0) == (g is wide)):
-            raise AssertionError(f"K-NCO phasor {what} differs from its "
-                                 f"plain loop: {err}, redone {redid}")
+            raise AssertionError(f"K-NCO subcarrier {what} differs from "
+                                 f"its plain loop: {err}, redone {redid}")
         errs.append(err[0])
         return got
 
@@ -1676,8 +1659,8 @@ def check_nco_phasor(rows, n, gains, gen, probe, mhz) -> dict:
     # Read the pilot and its scale, write the subcarrier; the state.
     least = bound(4 * (2 * x.numel() + 5 * rows), 21.0 * x.numel())
     latency_ms = min(probe["phasor", lanes][0] for lanes in (1, 32))
-    print(f"[kernel] K-NCO phasor {rows}x{n}: kernel {ms:.3f} ms between "
-          f"CUDA events, {device_ms:.3f} ms device time; "
+    print(f"[kernel] K-NCO subcarrier {rows}x{n}: kernel {ms:.3f} ms "
+          f"between CUDA events, {device_ms:.3f} ms device time; "
           f"{device_ms * 1e-3 * mhz * 1e6 / n:.1f} cycles a sample at "
           f"{mhz:.0f} MHz; least {latency_ms:.3f} ms by latency (the "
           f"phasor chain over a row: {latency_ms / device_ms:.1%}), "

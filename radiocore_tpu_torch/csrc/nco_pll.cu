@@ -12,90 +12,32 @@
 // the scan would be one Python iteration of a dozen tiny launches per
 // sample, so on a CUDA tensor the loop is this kernel.
 //
-// Cycle counts below: NVIDIA H100 80GB HBM3 at 700 W and 1980 MHz
-// (rc_nco_chain_probe, tools/nco_sweep.py, chip_smoke.py).
-//
-// What bounds it on an H100: neither bytes nor operations but the latency
-// of the dependent chain of one sample, which no other sample of the row
-// can overlap. The bytes (one read of x, one write of traj: 8 bytes a
-// sample, 0.040 ms for 64 rows of 262 144) are a fraction of a percent of
-// it, and rows are independent, so the time hardly depends on their
-// number until they fill the card's warp slots. The scan's order puts
-// cosf's range reduction and polynomial, a multiply, three adds, a
-// multiply-add and the wrap's compare and select on that chain.
-//
-// What the design does about it:
-//  - The recurrence is substituted so that the chain is one hardware
-//    cosine and one fused multiply-add. With freq' = freq + ki*err put into
-//    the phase update, and p the phase before its wrap (wrap(p) is the
-//    scan's phase):
-//
-//      s   = (wrap(p) + w0) + f           ready before the cosine
-//      c   = cos(p)                       the chain: FMUL (x 1/2pi), MUFU.COS
-//      p'  = fma((ki + kp) * x, c, s)     the chain: one FFMA
-//      f'  = fma(ki * x, c, f)
-//      traj[t] = wrap(p);  state out: wrap(p), f
-//
-//    The products of x and the sum s do not depend on c: they are issued
-//    while the cosine runs. rc_nco_chain_probe below times the bare chain,
-//    the kernel's least time a sample (25.6 cycles; with the wrap in front
-//    of the cosine 44.1, so the cosine takes the unwrapped phase).
-//  - The cosine is the hardware one, __cosf, here only (kernels/build.py
-//    keeps --use_fast_math off for every other source). Its absolute error
-//    on [-pi, pi] is 2^-21.41; p lies in (-pi, pi + w0 + f + kp*err], and
-//    past pi the error grows only as |p| * 6e-8 (the scaling by 1/2pi
-//    rounds toward zero). A phase beyond 2 pi (a caller's initial phase, a
-//    loop driven to a negative frequency) must take cosf, and a select
-//    would wait for both and put cosf back on the chain; a branch a sample
-//    kept the sums behind it (78 cycles a sample). So a tile goes on the
-//    hardware cosine alone, noting whether a phase was beyond 2 pi, and
-//    such a tile is done again from its first state with cosf by a branch:
-//    the guard costs one branch a tile, off the chain.
-//  - One thread per row, the carried (p, f) in registers. Every load and
-//    store of a warp that holds a row a lane touches as many lines as it
-//    has lanes, and those accesses queue in front of the cosines (the
-//    hardware cosine is issued through the same memory-and-special-function
-//    queue): so the rows are spread over the SMs' schedulers, a block of
-//    one warp taking ceil(rows / (4 SMs)) rows rounded up to a power of
-//    two (one row a block for 64 stations), 32 at most.
-//  - Loads and stores stay off the chain: a row goes by in tiles of 48
-//    samples, the next tile's loads started before the current tile's
-//    samples are worked and the tile eight ahead prefetched into L2; the
-//    trajectory leaves as streaming stores. A tile has a fixed cost (its
-//    guard branch, addresses, loop): with 16 samples the kernel took 41.3
-//    cycles a sample, 32 took 36.1, 48 took 33.8 and 64 (254 registers)
-//    38.7. Rows on a 16-byte boundary move as 16-byte accesses, others as
-//    scalar ones, loaded a tile ahead all the same; only the ragged end
-//    (under 48 samples) goes sample by sample.
-//
-// The kernel does not round as the scan does: two float32 loops that round
-// differently drift apart by about 1e-5 rad before the loop's feedback
-// pulls them back. kernels/nco_pll.py `nco_pll_track_plain` keeps the
-// scan's order; chip_smoke.py holds the kernel to it and to float64 with
-// bounds that say so.
-//
-// The phasor form (nco_pll_kernel_phasor, rc_nco_pll_subcarrier): the same
-// loop for a caller that needs the 38 kHz subcarrier and not the phase
-// (the stereo decoder, ops/nco_pll.py `nco_pll_subcarrier`). It carries
-// the NCO as the phasor w = sqrt(2) e^{jp} in place of p:
+// It carries the NCO as the phasor w = sqrt(2) e^{jp} in place of p:
 //
 //   cos p  = Re w / sqrt(2)              the detector's cosine, free
 //   psi    = fma(a, Re w, f)             a = (kp + ki) s_row x / sqrt(2)
 //   f'     = fma(b, Re w, f)             b = ki s_row x / sqrt(2)
-//   sub[t] = -Re w Im w                  -sin 2p, the subcarrier
+//   out[t] = -Re w Im w                  -sin 2p, the subcarrier, or
+//            atan2(Im w, Re w)           p, the phase (kNcoPhase)
 //   w'     = (w e^{jw0}) e^{jpsi}
 //
-// with s_row the row's 1 / RMS (the pilot is read as the bandpass gives
-// it), and the gains over sqrt(2) and e^{jw0} = (cw, sw) rounded once from
-// float64 on the host. The length sqrt(2) makes the subcarrier one
-// product.
+// with s_row the row's 1 / RMS (the stereo decoder's pilot is read as the
+// bandpass gives it; the trajectory's caller passes 1), and the gains over
+// sqrt(2) and e^{jw0} = (cw, sw) rounded once from float64 on the host.
+// The length sqrt(2) makes the subcarrier one product. The subcarrier is
+// what the `nco` step runs (ops/nco_pll.py `nco_pll_subcarrier`); the phase
+// is `nco_pll_track`'s trajectory on the card, on no path of the system.
+// The phase output's first sample is the phase the caller gave, as the
+// scan's is (the atan2 of its phasor would round it).
 //
-// What bounds it: still the chain of one sample, but with no
-// transcendental on it. In the loop |psi| is about 1e-3 rad (the gains of
-// a 50 Hz loop at 240 kS/s sum to 5.9e-4, the normalised pilot peaks near
-// 1.5), so e^{jpsi} is 1 - psi^2 / 2 + j psi to within 2^-26 for every
-// |psi| up to kNcoPsiMax = 2^-8 (the series' error is psi^3 / 6). With
-// u = w e^{jw0} and h = psi / 2 it is applied as
+// What bounds it on an H100: neither bytes nor operations but the latency
+// of the dependent chain of one sample, which no other sample of the row
+// can overlap; rows are independent, so the time hardly depends on their
+// number until they fill the card's warp slots. In the loop |psi| is about
+// 1e-3 rad (the gains of a 50 Hz loop at 240 kS/s sum to 5.9e-4, the
+// normalised pilot peaks near 1.5), so e^{jpsi} is 1 - psi^2 / 2 + j psi
+// to within 2^-26 for every |psi| up to kNcoPsiMax = 2^-8 (the series'
+// error is psi^3 / 6). With u = w e^{jw0} and h = psi / 2 it is applied as
 //
 //   Re w' = fma(-psi, fma(h, Re u, Im u), Re u)
 //   Im w' = fma(psi, fma(-h, Im u, Re u), Im u)
@@ -107,9 +49,8 @@
 // issued one at a time by the row's one warp: measured (NVIDIA H100 80GB
 // HBM3, 700 W, 1980 MHz; rc_nco_chain_probe) the bare recurrence takes
 // 21.5 cycles a sample and the whole sample without loads and stores
-// 21.9; in the kernel, at 24 x 240 000, 26.9 (3.26 ms, against the phase
-// form's 33.8 to 34.1 at the same shape). No MUFU is left on the fast
-// path.
+// 21.9; in the kernel, at 24 x 240 000, 26.9 (3.26 ms). No MUFU is left on
+// the subcarrier's fast path.
 //
 // What the design does about it:
 //  - The series is checked a tile at a time, off the chain: each sample
@@ -119,32 +60,42 @@
 //    (sincosf) by one branch a tile, and counted on the caller's device
 //    counter (`redone`, one atomic add a redone tile), so that a graph's
 //    replays count too. The redo (phasor_redo) is out of line: it reads
-//    the tile's pilot back and writes its subcarrier again by pointer, so
-//    the fast path's code stays in one piece. A phase beyond 2 pi needs no
-//    guard: the phasor has no phase to wrap.
+//    the tile's pilot back and writes its output again by pointer, so the
+//    fast path's code stays in one piece. A phase beyond 2 pi (a caller's
+//    initial phase) needs no guard: the phasor has no phase to wrap.
 //  - |w| drifts by the rounding of each rotation (about 1e-7 a sample)
 //    and is brought back to sqrt(2) once a tile by one Newton step,
 //    g = 1.5 - |w|^2 / 4.
-//  - One thread a row, one row a block (nco_lanes; 24 rows are 24 blocks
-//    of one thread), as the phase form: every lane of a warp working the
-//    same row with lane q keeping quad q of the subcarrier (one store a
-//    tile), or a rolled loop with the pilot shuffled from the lanes,
-//    measured no faster (30.8 and 35.7 cycles a sample at 96 and 32
-//    samples a group).
-//  - Loads as the phase form's (16-byte, a tile ahead, the L2 prefetch);
-//    each quad of the subcarrier leaves by a 16-byte store as soon as it
-//    is worked, in place of the trajectory, so the caller's passes over
-//    the trajectory (2 traj, sin) go away. A tile is 80 samples
+//  - One thread per row, the carried (w, f) in registers. Every load and
+//    store of a warp that holds a row a lane touches as many lines as it
+//    has lanes, so the rows are spread over the SMs' schedulers, a block of
+//    one warp taking ceil(rows / (4 SMs)) rows rounded up to a power of
+//    two (nco_lanes; one row a block for 24 or 64 stations), 32 at most.
+//    Every lane of a warp working the same row with lane q keeping quad q
+//    of the output (one store a tile), or a rolled loop with the pilot
+//    shuffled from the lanes, measured no faster (30.8 and 35.7 cycles a
+//    sample at 96 and 32 samples a group).
+//  - Loads and stores stay off the chain: rows on a 16-byte boundary move
+//    as 16-byte accesses, others as scalar ones; the next tile's loads are
+//    started before the current tile's samples are worked, the tile eight
+//    ahead is prefetched into L2, and each quad of the output leaves by a
+//    streaming store as soon as it is worked. A tile is 80 samples
 //    (kNcoPhasorTile): by measurement at 24 x 240 000 the time a sample
 //    went 32.0, 30.4, 30.0, 30.9, 26.7, 26.6, 28.5, 29.7, 30.2 cycles at
 //    48, 40, 64, 72, 80, 88, 96, 104, 112 samples a tile; two tiles a
 //    loop with no copy between them, or one buffer filled from L1 after
-//    an L1 prefetch, were slower (31.8 to 44.2).
-//  - The state crosses chunks as the phase: w0 = sqrt(2) sincosf(phase_in),
-//    and phase_out = atan2f(Im w, Re w), in (-pi, pi] as the scan's
-//    wrapped phase is.
-// kernels/nco_pll.py `nco_pll_subcarrier_plain` is the same arithmetic in
-// float32 with the rows as the vector.
+//    an L1 prefetch, were slower (31.8 to 44.2). Only the ragged end
+//    (under 80 samples) goes sample by sample.
+//  - The state crosses chunks as the phase: w = sqrt(2) e^{j phase_in} by
+//    sincosf at the start, phase_out = atan2f(Im w, Re w) at the end, in
+//    (-pi, pi] as the scan's wrapped phase is.
+//
+// The kernel does not round as the scan does: the scan carries the phase
+// in float32 and rounds it at every sum, the kernel carries w. On the
+// CPU, over rms-normalised pilots, the scan's float32 trajectory drifts up
+// to about 1e-4 rad from a float64 loop while it acquires, the phasor's
+// plain loop a few 1e-6. kernels/nco_pll.py `nco_pll_phasor_plain` is the
+// kernel's arithmetic in float32 with the rows as the vector.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -152,78 +103,17 @@
 namespace rc {
 
 constexpr int kNcoThreads = 32;  // rows per block, at most
-constexpr int kNcoTile = 48;     // samples per tile
 constexpr int kNcoAhead = 8;     // tiles between a row's L2 prefetch and use
-constexpr float kNcoPi = 3.14159265358979323846f;
-constexpr float kNcoTwoPi = 6.28318530717958647692f;
-// The phasor form's series limit: (1 - psi^2 / 2, psi) is e^{jpsi} to
-// within 2^-26 for |psi| <= 2^-8.
+// The series limit: (1 - psi^2 / 2, psi) is e^{jpsi} to within 2^-26 for
+// |psi| <= 2^-8.
 constexpr float kNcoPsiMax = 0.00390625f;
-constexpr int kNcoPhasorTile = 80;  // samples a tile of the phasor form
+constexpr int kNcoPhasorTile = 80;  // samples a tile
 
-struct NcoPll {
-  const float* x;  // (rows, n), rows x_stride apart
-  long long x_stride;
-  const float* phase_in;  // (rows,)
-  const float* freq_in;   // (rows,)
-  float* traj;            // (rows, n), contiguous
-  float* phase_out;       // (rows,)
-  float* freq_out;        // (rows,)
-  long long rows;
-  long long n;
-  float kp, ki, w0;
-};
+// What a sample writes (the C entry's `output`).
+constexpr int kNcoSubcarrier = 0;  // -sin 2p = -Re w Im w
+constexpr int kNcoPhase = 1;       // p = atan2(Im w, Re w), nco_phase
 
-// One sample; returns the phase the detector saw (the scan's phase, wrap(p)).
-// kk = ki + kp. kGuard: the cosine beyond 2 pi is cosf, by a branch;
-// without it the sample only notes in `far` that __cosf was given such a
-// phase.
-template <bool kGuard>
-__device__ __forceinline__ float nco_sample(float x, float& p, float& f,
-                                            float kk, float ki, float w0,
-                                            bool& far) {
-  const float seen = p > kNcoPi ? __fsub_rn(p, kNcoTwoPi) : p;
-  const float s = __fadd_rn(__fadd_rn(seen, w0), f);
-  const float a = __fmul_rn(kk, x);
-  const float b = __fmul_rn(ki, x);
-  float c = __cosf(p);
-  if (kGuard) {
-    if (fabsf(p) > kNcoTwoPi) c = cosf(p);
-  } else {
-    far |= fabsf(p) > kNcoTwoPi;
-  }
-  p = __fmaf_rn(a, c, s);
-  f = __fmaf_rn(b, c, f);
-  return seen;
-}
-
-// kN samples from (p, f): all on the hardware cosine, and if one of them
-// met a phase beyond 2 pi (a wild initial phase; no sample of a locked
-// loop), all again from the same state with the guard. The guard's branch
-// is taken once a tile, off the samples' chain.
-template <int kN>
-__device__ __forceinline__ void nco_tile(const float (&x)[kN],
-                                         float (&out)[kN], float& p,
-                                         float& f, float kk, float ki,
-                                         float w0) {
-  const float p0 = p;
-  const float f0 = f;
-  bool far = false;
-#pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    out[j] = nco_sample<false>(x[j], p, f, kk, ki, w0, far);
-  }
-  if (far) {
-    p = p0;
-    f = f0;
-#pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      out[j] = nco_sample<true>(x[j], p, f, kk, ki, w0, far);
-    }
-  }
-}
-
-// A tile of either form: 16-byte accesses (kVec) or scalar ones.
+// A tile of the pilot: 16-byte accesses (kVec) or scalar ones.
 template <bool kVec, int kN>
 __device__ __forceinline__ void nco_load_tile(const float* src,
                                               float (&v)[kN]) {
@@ -243,22 +133,6 @@ __device__ __forceinline__ void nco_load_tile(const float* src,
   }
 }
 
-template <bool kVec>
-__device__ __forceinline__ void nco_store_tile(float* dst,
-                                               const float (&v)[kNcoTile]) {
-  if (kVec) {
-    float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-    for (int q = 0; q < kNcoTile / 4; ++q) {
-      __stcs(d4 + q, make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
-                                 v[4 * q + 3]));
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kNcoTile; ++j) __stcs(dst + j, v[j]);
-  }
-}
-
 // Rows a block (one warp): the rows spread over the SMs' schedulers, four
 // an SM, a power of two.
 inline int nco_lanes(long long rows, int sms) {
@@ -269,50 +143,13 @@ inline int nco_lanes(long long rows, int sms) {
   return lanes;
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kNcoThreads)
-    nco_pll_kernel(const NcoPll prm) {
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= prm.rows) return;
-  const float* xr = prm.x + row * prm.x_stride;
-  float* tr = prm.traj + row * prm.n;
-  const float kk = __fadd_rn(prm.ki, prm.kp);
-  const float ki = prm.ki;
-  const float w0 = prm.w0;
-  float p = prm.phase_in[row];
-  float f = prm.freq_in[row];
-  const long long tiles = prm.n / kNcoTile;
-  float next[kNcoTile];
-  if (tiles > 0) nco_load_tile<kVec>(xr, next);
-  for (long long i = 0; i < tiles; ++i) {
-    float cur[kNcoTile];
-#pragma unroll
-    for (int j = 0; j < kNcoTile; ++j) cur[j] = next[j];
-    if (i + 1 < tiles) nco_load_tile<kVec>(xr + (i + 1) * kNcoTile, next);
-    if (i + kNcoAhead < tiles) {
-      asm volatile("prefetch.global.L2 [%0];"
-                   :
-                   : "l"(xr + (i + kNcoAhead) * kNcoTile));
-    }
-    float out[kNcoTile];
-    nco_tile(cur, out, p, f, kk, ki, w0);
-    nco_store_tile<kVec>(tr + i * kNcoTile, out);
-  }
-  bool far = false;
-  for (long long t = tiles * kNcoTile; t < prm.n; ++t) {
-    tr[t] = nco_sample<true>(xr[t], p, f, kk, ki, w0, far);
-  }
-  prm.phase_out[row] = p > kNcoPi ? __fsub_rn(p, kNcoTwoPi) : p;
-  prm.freq_out[row] = f;
-}
-
 struct NcoPhasor {
   const float* x;  // (rows, n), rows x_stride apart: the pilot
   long long x_stride;
-  const float* scale;     // (rows,) 1 / RMS of the row
+  const float* scale;     // (rows,) 1 / RMS of the row, or 1
   const float* phase_in;  // (rows,)
   const float* freq_in;   // (rows,)
-  float* sub;             // (rows, n), contiguous: -sin 2p
+  float* out;             // (rows, n), contiguous: what kOut says
   float* phase_out;       // (rows,)
   float* freq_out;        // (rows,)
   unsigned long long* redone;  // tiles done again with sincosf
@@ -329,14 +166,38 @@ constexpr int kPhasorSeries = 0;
 constexpr int kPhasorExact = 1;
 constexpr int kPhasorEither = 2;
 
-// One sample: returns the subcarrier of the phase the detector saw,
-// -sin 2p = -Re w Im w, and turns (w, f) on by one sample. as = ak s_row,
-// bs = ai s_row.
-template <int kMode>
+// The phase output's atan2(Im w, Re w), branch-free. |w| is sqrt(2) to
+// within the renormalisation, so the ratio of the smaller part to the
+// larger needs no special case and no IEEE division (whose slow path, a
+// branch and a call a sample, held atan2f to 270 cycles a sample):
+// z = lo / hi by __fdividef, atan(z) = z + z^3 Q(z^2) with Q the degree-5
+// minimax fit on [0, 1] of extract_demod.cu's atan2_fast (within 2e-6 rad
+// of atan2), then the octant and the quadrant by selects. NaN stays NaN.
+__device__ __forceinline__ float nco_phase(float wr, float wi) {
+  const float ax = fabsf(wr), ay = fabsf(wi);
+  const float z = __fdividef(fminf(ax, ay), fmaxf(ax, ay));
+  const float s = z * z;
+  float q = 0.00738483341f;
+  q = fmaf(q, s, -0.0355649926f);
+  q = fmaf(q, s, 0.0822363347f);
+  q = fmaf(q, s, -0.134035528f);
+  q = fmaf(q, s, 0.198633403f);
+  q = fmaf(q, s, -0.333255589f);
+  float r = fmaf(q, z * s, z);
+  r = ay > ax ? 1.57079632679489662f - r : r;
+  r = wr < 0.f ? 3.14159265358979324f - r : r;
+  return wi < 0.f ? -r : r;
+}
+
+// One sample: returns kOut of the phase the detector saw (the subcarrier
+// -sin 2p = -Re w Im w, or the phase p), and turns (w, f) on by one
+// sample. as = ak s_row, bs = ai s_row.
+template <int kMode, int kOut>
 __device__ __forceinline__ float phasor_sample(float x, float& wr, float& wi,
                                                float& f, float as, float bs,
                                                float cw, float sw, float& m) {
-  const float out = __fmul_rn(-wr, wi);
+  const float out =
+      kOut == kNcoSubcarrier ? __fmul_rn(-wr, wi) : nco_phase(wr, wi);
   const float a = __fmul_rn(as, x);
   const float b = __fmul_rn(bs, x);
   const float psi = __fmaf_rn(a, wr, f);
@@ -365,22 +226,23 @@ struct PhasorState {
 };
 
 // The exact rotation over `count` samples from `st`, the pilot read back
-// from `x` and the subcarrier written again to `out`: a tile's redo, out of
+// from `x` and the output written again to `out`: a tile's redo, out of
 // line so that the fast path's code stays in one piece.
+template <int kOut>
 __device__ __noinline__ PhasorState phasor_redo(const float* x, float* out,
                                                 int count, PhasorState st,
                                                 float as, float bs, float cw,
                                                 float sw) {
   float m = 0.0f;
   for (int j = 0; j < count; ++j) {
-    out[j] = phasor_sample<kPhasorExact>(__ldcs(x + j), st.wr, st.wi, st.f,
-                                         as, bs, cw, sw, m);
+    out[j] = phasor_sample<kPhasorExact, kOut>(__ldcs(x + j), st.wr, st.wi,
+                                               st.f, as, bs, cw, sw, m);
   }
   return st;
 }
 
-// Four samples of a tile's subcarrier by one 16-byte store (kVec) or by
-// four scalar ones.
+// Four samples of a tile's output by one 16-byte store (kVec) or by four
+// scalar ones.
 template <bool kVec>
 __device__ __forceinline__ void phasor_store4(float* dst, float a, float b,
                                               float c, float d) {
@@ -407,7 +269,7 @@ __device__ __forceinline__ void phasor_renorm(float& wr, float& wi) {
 // had |psi| past the series' limit, the tile again from the same state
 // with sincosf (phasor_redo, which stores over the first results),
 // counted on `redone`. Then |w| back to sqrt(2).
-template <bool kVec, int kN>
+template <bool kVec, int kOut, int kN>
 __device__ __forceinline__ void phasor_tile(const float (&x)[kN],
                                             const float* xg, float* dst,
                                             float& wr, float& wi, float& f,
@@ -422,31 +284,32 @@ __device__ __forceinline__ void phasor_tile(const float (&x)[kN],
     float o[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      o[j] = phasor_sample<kPhasorSeries>(x[4 * q + j], wr, wi, f, as, bs,
-                                          cw, sw, m);
+      o[j] = phasor_sample<kPhasorSeries, kOut>(x[4 * q + j], wr, wi, f, as,
+                                                bs, cw, sw, m);
     }
     phasor_store4<kVec>(dst + 4 * q, o[0], o[1], o[2], o[3]);
   }
   if (m > kNcoPsiMax) {
-    const PhasorState st = phasor_redo(xg, dst, kN, st0, as, bs, cw, sw);
+    const PhasorState st =
+        phasor_redo<kOut>(xg, dst, kN, st0, as, bs, cw, sw);
     wr = st.wr;
     wi = st.wi;
     f = st.f;
-    // Never null from rc_nco_pll_subcarrier. Without the test ptxas
-    // schedules the tile otherwise, and the kernel ran 1.6% slower at
-    // 24 x 240 000 (NVIDIA H100 80GB HBM3, 700 W).
+    // Never null from rc_nco_pll. Without the test ptxas schedules the
+    // tile otherwise, and the kernel ran 1.6% slower at 24 x 240 000
+    // (NVIDIA H100 80GB HBM3, 700 W).
     if (redone != nullptr) atomicAdd(redone, 1ULL);
   }
   phasor_renorm(wr, wi);
 }
 
-template <bool kVec>
+template <bool kVec, int kOut>
 __global__ void __launch_bounds__(kNcoThreads)
     nco_pll_kernel_phasor(const NcoPhasor prm) {
   const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= prm.rows) return;
   const float* xr = prm.x + row * prm.x_stride;
-  float* sr = prm.sub + row * prm.n;
+  float* sr = prm.out + row * prm.n;
   const float s_row = prm.scale[row];
   const float as = __fmul_rn(prm.ak, s_row);
   const float bs = __fmul_rn(prm.ai, s_row);
@@ -472,94 +335,72 @@ __global__ void __launch_bounds__(kNcoThreads)
                    :
                    : "l"(xr + (i + kNcoAhead) * kNcoPhasorTile));
     }
-    phasor_tile<kVec>(
+    phasor_tile<kVec, kOut>(
         cur, xr + i * kNcoPhasorTile, sr + i * kNcoPhasorTile, wr, wi, f, as,
         bs, cw, sw, prm.redone);
   }
   float m = 0.0f;
   for (long long t = tiles * kNcoPhasorTile; t < prm.n; ++t) {
-    sr[t] = phasor_sample<kPhasorEither>(xr[t], wr, wi, f, as, bs, cw, sw,
-                                         m);
+    sr[t] = phasor_sample<kPhasorEither, kOut>(xr[t], wr, wi, f, as, bs, cw,
+                                               sw, m);
   }
+  // The phase's first sample is the phase given (the scan's), not the
+  // rounded atan2 of its phasor; the same thread stored it above.
+  if (kOut == kNcoPhase) sr[0] = prm.phase_in[row];
   prm.phase_out[row] = atan2f(wi, wr);
   prm.freq_out[row] = f;
 }
 
 // The measuring aid behind rc_nco_chain_probe: each thread runs n links of
 // a chain with x and the constants in registers, no loads or stores, and
-// writes its phase and the SM cycles the loop took once at the end.
-//   kChain 0: the bare chain, p = fma(a, __cosf(p), s)
-//   kChain 1: the same with the wrap on the chain, __cosf(wrap(p))
-//   kChain 2: the kernel's tiles (nco_tile, the guard included), n / 48
-//             of them
-//   kChain 3: the phasor's bare recurrence, w' = (w e^{jw0}) e^{jpsi}
-//             with psi = fma(a, Re w, f) and the series, and f's update
-//   kChain 4: the phasor kernel's tiles without memory: each sample's
-//             subcarrier and the max of |psi| kept (an empty asm, no
-//             instruction) in place of the stores and the guard's branch,
-//             and |w|'s renormalisation, n / kNcoPhasorTile of them
+// writes its state and the SM cycles the loop took once at the end.
+//   kChain 0: the bare recurrence, w' = (w e^{jw0}) e^{jpsi} with
+//             psi = fma(a, Re w, f) and the series, and f's update
+//   kChain 1: the kernel's tiles without memory: each sample's subcarrier
+//             and the max of |psi| kept (an empty asm, no instruction) in
+//             place of the stores and the guard's branch, and |w|'s
+//             renormalisation, n / kNcoPhasorTile of them
 template <int kChain>
 __global__ void nco_chain_probe_kernel(float* result, long long* cycles,
                                        long long n, float x, float kp,
                                        float ki, float w0) {
   const float kk = __fadd_rn(ki, kp);
-  const float a = __fmul_rn(kk, x);
-  const float s = w0;
-  float p = 0.01f * threadIdx.x;
   float f = 0.0f;
   const long long t0 = clock64();
-  if (kChain == 3 || kChain == 4) {
-    const float as = __fmul_rn(kk, 0.70710678118654752440f);
-    const float bs = __fmul_rn(ki, 0.70710678118654752440f);
-    const float cw = cosf(w0);
-    const float sw = sinf(w0);
-    float wr, wi;
-    sincosf(p, &wi, &wr);
-    wr = __fmul_rn(wr, 1.41421356237309504880f);
-    wi = __fmul_rn(wi, 1.41421356237309504880f);
-    if (kChain == 3) {
-      float m = 0.0f;
-#pragma unroll 16
-      for (long long i = 0; i < n; ++i) {
-        phasor_sample<kPhasorSeries>(x, wr, wi, f, as, bs, cw, sw, m);
-      }
-    } else {
-      for (long long i = 0; i < n / kNcoPhasorTile; ++i) {
-        float m = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kNcoPhasorTile; ++j) {
-          const float o = phasor_sample<kPhasorSeries>(x, wr, wi, f, as, bs,
-                                                       cw, sw, m);
-          asm volatile("" : : "f"(o));
-        }
-        asm volatile("" : : "f"(m));
-        phasor_renorm(wr, wi);
-      }
-    }
-    p = wr + wi;
-  } else if (kChain == 2) {
-    float xs[kNcoTile];
-    float out[kNcoTile];
-#pragma unroll
-    for (int j = 0; j < kNcoTile; ++j) xs[j] = x;
-    for (long long i = 0; i < n / kNcoTile; ++i) {
-      nco_tile(xs, out, p, f, kk, ki, w0);
-    }
-  } else {
+  const float as = __fmul_rn(kk, 0.70710678118654752440f);
+  const float bs = __fmul_rn(ki, 0.70710678118654752440f);
+  const float cw = cosf(w0);
+  const float sw = sinf(w0);
+  float wr, wi;
+  sincosf(0.01f * threadIdx.x, &wi, &wr);
+  wr = __fmul_rn(wr, 1.41421356237309504880f);
+  wi = __fmul_rn(wi, 1.41421356237309504880f);
+  if (kChain == 0) {
+    float m = 0.0f;
 #pragma unroll 16
     for (long long i = 0; i < n; ++i) {
-      const float in = kChain == 0 || p <= kNcoPi ? p
-                                                  : __fsub_rn(p, kNcoTwoPi);
-      p = __fmaf_rn(a, __cosf(in), s);
+      phasor_sample<kPhasorSeries, kNcoSubcarrier>(x, wr, wi, f, as, bs, cw,
+                                                   sw, m);
+    }
+  } else {
+    for (long long i = 0; i < n / kNcoPhasorTile; ++i) {
+      float m = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kNcoPhasorTile; ++j) {
+        const float o = phasor_sample<kPhasorSeries, kNcoSubcarrier>(
+            x, wr, wi, f, as, bs, cw, sw, m);
+        asm volatile("" : : "f"(o));
+      }
+      asm volatile("" : : "f"(m));
+      phasor_renorm(wr, wi);
     }
   }
   const long long t1 = clock64();
-  result[threadIdx.x] = p + f;
+  result[threadIdx.x] = (wr + wi) + f;
   cycles[threadIdx.x] = t1 - t0;
 }
 
-// The launch of either form: `lanes` rows a block (nco_lanes), `blocks`
-// blocks.
+// The launch: `lanes` rows a block (nco_lanes), `blocks` blocks.
 inline cudaError_t nco_grid(long long rows, int* lanes_out,
                             unsigned* blocks_out) {
   int dev = 0;
@@ -577,57 +418,33 @@ inline cudaError_t nco_grid(long long rows, int* lanes_out,
   return cudaSuccess;
 }
 
-}  // namespace rc
-
-extern "C" int rc_nco_pll(const void* x, long long x_stride,
-                          const void* phase_in, const void* freq_in,
-                          void* traj, void* phase_out, void* freq_out,
-                          long long rows, long long n, float kp, float ki,
-                          float w0, void* stream) {
-  if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  int lanes = 0;
-  unsigned blocks = 0;
-  const cudaError_t e = rc::nco_grid(rows, &lanes, &blocks);
-  if (e != cudaSuccess) return (int)e;
-  rc::NcoPll p;
-  p.x = (const float*)x;
-  p.x_stride = x_stride;
-  p.phase_in = (const float*)phase_in;
-  p.freq_in = (const float*)freq_in;
-  p.traj = (float*)traj;
-  p.phase_out = (float*)phase_out;
-  p.freq_out = (float*)freq_out;
-  p.rows = rows;
-  p.n = n;
-  p.kp = kp;
-  p.ki = ki;
-  p.w0 = w0;
-  // 16-byte accesses need every row of x and of traj on a 16-byte boundary.
-  const bool vec = ((reinterpret_cast<uintptr_t>(x) & 15) == 0) &&
-                   ((reinterpret_cast<uintptr_t>(traj) & 15) == 0) &&
-                   (x_stride % 4 == 0) && (n % 4 == 0);
-  const cudaStream_t s = (cudaStream_t)stream;
+template <int kOut>
+void nco_launch(const NcoPhasor& p, bool vec, unsigned blocks, int lanes,
+                cudaStream_t s) {
   if (vec) {
-    rc::nco_pll_kernel<true><<<blocks, lanes, 0, s>>>(p);
+    nco_pll_kernel_phasor<true, kOut><<<blocks, lanes, 0, s>>>(p);
   } else {
-    rc::nco_pll_kernel<false><<<blocks, lanes, 0, s>>>(p);
+    nco_pll_kernel_phasor<false, kOut><<<blocks, lanes, 0, s>>>(p);
   }
-  return (int)cudaGetLastError();
 }
 
-// The phasor form: the subcarrier -sin 2p of the loop over the raw pilot
-// `x`, each row scaled by `scale` (1 / RMS); ak = (ki + kp) / sqrt(2), ai =
-// ki / sqrt(2) and (cw, sw) = e^{j w0}, float32 from the host. `redone`
-// (one unsigned 64-bit count on the device) is added to once a tile done
-// again with sincosf.
-extern "C" int rc_nco_pll_subcarrier(const void* x, long long x_stride,
-                                     const void* scale, const void* phase_in,
-                                     const void* freq_in, void* sub,
-                                     void* phase_out, void* freq_out,
-                                     void* redone, long long rows,
-                                     long long n, float ak, float ai,
-                                     float cw, float sw, void* stream) {
-  if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
+}  // namespace rc
+
+// K-NCO over the pilot `x`, each row scaled by `scale` (1 / RMS, or 1);
+// `out` takes `output` a sample (kNcoSubcarrier: -sin 2p; kNcoPhase: p).
+// ak = (ki + kp) / sqrt(2), ai = ki / sqrt(2) and (cw, sw) = e^{j w0},
+// float32 from the host. `redone` (one unsigned 64-bit count on the
+// device) is added to once a tile done again with sincosf.
+extern "C" int rc_nco_pll(const void* x, long long x_stride,
+                          const void* scale, const void* phase_in,
+                          const void* freq_in, void* out, void* phase_out,
+                          void* freq_out, void* redone, long long rows,
+                          long long n, float ak, float ai, float cw, float sw,
+                          int output, void* stream) {
+  if (rows < 1 || n < 1 ||
+      (output != rc::kNcoSubcarrier && output != rc::kNcoPhase)) {
+    return (int)cudaErrorInvalidValue;
+  }
   int lanes = 0;
   unsigned blocks = 0;
   const cudaError_t e = rc::nco_grid(rows, &lanes, &blocks);
@@ -638,7 +455,7 @@ extern "C" int rc_nco_pll_subcarrier(const void* x, long long x_stride,
   p.scale = (const float*)scale;
   p.phase_in = (const float*)phase_in;
   p.freq_in = (const float*)freq_in;
-  p.sub = (float*)sub;
+  p.out = (float*)out;
   p.phase_out = (float*)phase_out;
   p.freq_out = (float*)freq_out;
   p.redone = (unsigned long long*)redone;
@@ -648,14 +465,15 @@ extern "C" int rc_nco_pll_subcarrier(const void* x, long long x_stride,
   p.ai = ai;
   p.cw = cw;
   p.sw = sw;
+  // 16-byte accesses need every row of x and of out on a 16-byte boundary.
   const bool vec = ((reinterpret_cast<uintptr_t>(x) & 15) == 0) &&
-                   ((reinterpret_cast<uintptr_t>(sub) & 15) == 0) &&
+                   ((reinterpret_cast<uintptr_t>(out) & 15) == 0) &&
                    (x_stride % 4 == 0) && (n % 4 == 0);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (vec) {
-    rc::nco_pll_kernel_phasor<true><<<blocks, lanes, 0, s>>>(p);
+  if (output == rc::kNcoSubcarrier) {
+    rc::nco_launch<rc::kNcoSubcarrier>(p, vec, blocks, lanes, s);
   } else {
-    rc::nco_pll_kernel_phasor<false><<<blocks, lanes, 0, s>>>(p);
+    rc::nco_launch<rc::kNcoPhase>(p, vec, blocks, lanes, s);
   }
   return (int)cudaGetLastError();
 }
@@ -677,18 +495,6 @@ extern "C" int rc_nco_chain_probe(void* result, void* cycles, long long n,
       break;
     case 1:
       rc::nco_chain_probe_kernel<1><<<1, lanes, 0, s>>>(r, c, n, x, kp, ki,
-                                                        w0);
-      break;
-    case 2:
-      rc::nco_chain_probe_kernel<2><<<1, lanes, 0, s>>>(r, c, n, x, kp, ki,
-                                                        w0);
-      break;
-    case 3:
-      rc::nco_chain_probe_kernel<3><<<1, lanes, 0, s>>>(r, c, n, x, kp, ki,
-                                                        w0);
-      break;
-    case 4:
-      rc::nco_chain_probe_kernel<4><<<1, lanes, 0, s>>>(r, c, n, x, kp, ki,
                                                         w0);
       break;
     default:

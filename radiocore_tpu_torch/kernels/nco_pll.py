@@ -9,31 +9,14 @@ samples that carries ``(phase, freq)``,
 
 :func:`nco_pll_track_plain` is that loop in PyTorch, in the scan's order
 and float32, with the rows as the vector, one Python iteration per
-sample. The kernel (``csrc/nco_pll.cu``) gives a row to a thread, walks
-it in tiles of :data:`TILE` samples and computes the same function with
-the frequency update substituted into the phase update, so that one
-sample's dependent chain is the hardware cosine and one fused
-multiply-add (``p`` the phase before its wrap)::
+sample: what :func:`nco_pll_track_rows` runs on a CPU tensor.
 
-    s = (wrap(p) + w0) + f;  c = cos(p)
-    p' = fma((ki + kp)·x, c, s);  f' = fma(ki·x, c, f);  traj[t] = wrap(p)
-
-It rounds differently from the scan: the two drift apart by about 1e-5
-rad before the loop pulls them back, and the kernel's cosine (``__cosf``;
-``cosf`` beyond 2π) is within 2^-21.41 of the exact one on [−π, π].
-
-A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-plain loop. :func:`nco_chain_probe` times the bare chain on the card, the
-kernel's least time a sample; no path calls it.
-
-The phasor form (:func:`nco_pll_subcarrier_rows`, the kernel
-``nco_pll_kernel_phasor``) runs the same loop for a caller that needs the
-38 kHz subcarrier ``−sin 2φ`` and not the phase: it carries the NCO as
-the phasor ``w = √2·e^{jφ}``, reads the raw pilot with a per-row scale
-(1/RMS), and per sample, with ``u = w·e^{jw0}`` and ``h = ψ/2``::
+The kernel (``csrc/nco_pll.cu``, ``nco_pll_kernel_phasor``) gives a row
+to a thread and carries the NCO as the phasor ``w = √2·e^{jφ}``. It
+reads the pilot with a per-row scale (1/RMS), and per sample, with ``u =
+w·e^{jw0}`` and ``h = ψ/2``::
 
     ψ = f + (kp + ki)·s·x·Re w/√2;  f' = f + ki·s·x·Re w/√2
-    sub[t] = −Re w·Im w
     w' = (ur − ψ·(ui + h·ur), ui + ψ·(ur − h·ui))
 
 which is ``u·(1 − ψ²/2 + jψ)``, ``u·e^{jψ}`` within 2^-26 for ``|ψ| ≤``
@@ -41,8 +24,19 @@ which is ``u·(1 − ψ²/2 + jψ)``, ``u·e^{jψ}`` within 2^-26 for ``|ψ| ≤
 ``|ψ|`` passed that is done again with the exact rotation and counted on
 :data:`redone`; ``|w|²`` goes back to 2 once a tile. The state crosses
 chunks as the phase (``atan2`` at the end, ``sin``/``cos`` at the
-start). :func:`nco_pll_subcarrier_plain` is that arithmetic in float32
-on the CPU.
+start). Each sample writes one of :data:`OUTPUTS`: the 38 kHz subcarrier
+``−sin 2φ = −Re w·Im w`` (:func:`nco_pll_subcarrier_rows`, what the
+stereo decoder runs), or the phase the detector saw, ``atan2(Im w, Re
+w)`` (:func:`nco_pll_track_rows` on a CUDA tensor, with a scale of 1; its
+first sample is the phase it was given, as in the scan). It rounds
+otherwise than the scan, which carries the phase in float32: while the
+loop acquires, the float32 scan drifts up to about 1e-4 rad from a
+float64 loop, the kernel a few 1e-6. :func:`nco_pll_phasor_plain` is the
+kernel's arithmetic in float32 on the CPU.
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
+plain loop. :func:`nco_chain_probe` times the bare chain on the card, the
+kernel's least time a sample; no path calls it.
 """
 
 from __future__ import annotations
@@ -55,34 +49,31 @@ import torch
 
 from radiocore_tpu_torch.kernels.fft_rows import LaunchCounter
 
-# Samples a thread takes at once (csrc/nco_pll.cu kNcoTile), by 16-byte
-# accesses on a 16-byte boundary, else by scalar ones; the ragged end goes
-# sample by sample.
-TILE = 48
+# What a sample of the kernel writes; the index is the C entry's output
+# code (csrc/nco_pll.cu kNcoSubcarrier, kNcoPhase).
+OUTPUTS = ("subcarrier", "phase")
 
 # The chains rc_nco_chain_probe times (csrc/nco_pll.cu
-# nco_chain_probe_kernel): the bare chain, FMUL -> MUFU.COS -> FFMA; the
-# same with the wrap before the cosine; the kernel's whole sample without
-# its loads and stores; the phasor form's bare recurrence (four dependent
-# FP32 operations a sample); the phasor kernel's whole sample without its
-# loads and stores.
-PROBE_CHAINS = ("bare", "wrap", "sample", "phasor", "phasor_sample")
+# nco_chain_probe_kernel): the kernel's bare recurrence (four dependent
+# FP32 operations a sample); the kernel's whole sample without its loads
+# and stores.
+PROBE_CHAINS = ("phasor", "phasor_sample")
 
-# The phasor form's series limit (csrc/nco_pll.cu kNcoPsiMax): the series
-# (1 - psi^2/2, psi) is e^{j psi} within 2^-26 up to here.
+# The series limit (csrc/nco_pll.cu kNcoPsiMax): the series (1 - psi^2/2,
+# psi) is e^{j psi} within 2^-26 up to here.
 PSI_MAX = 2.0 ** -8
 
-# Samples of a tile of the phasor form (csrc/nco_pll.cu kNcoPhasorTile): the
-# series' guard and |w|'s renormalisation act once a tile.
+# Samples of a tile (csrc/nco_pll.cu kNcoPhasorTile): the series' guard
+# and |w|'s renormalisation act once a tile.
 PHASOR_TILE = 80
 
 launches = LaunchCounter()
 
 
 class TileCounter:
-    """Tiles of the phasor form done again with the exact rotation, one
-    count a device: a persistent int64 on that device, added to by the
-    kernel (so it counts under graph replay too) or by the plain loop."""
+    """Tiles of K-NCO done again with the exact rotation, one count a
+    device: a persistent int64 on that device, added to by the kernel (so
+    it counts under graph replay too) or by the plain loop."""
 
     def __init__(self) -> None:
         self._counts: Dict[torch.device, torch.Tensor] = {}
@@ -143,50 +134,17 @@ def nco_pll_track_plain(pilot: torch.Tensor, kp: float, ki: float, w0: float,
     return traj.movedim(0, -1), phase, freq
 
 
-def _nco_kernel(pilot: torch.Tensor, kp: float, ki: float, w0: float,
-                phase: torch.Tensor, freq: torch.Tensor) -> Result:
-    from radiocore_tpu_torch.kernels import build
-    if pilot.dtype != torch.float32:
-        raise TypeError(f"nco_pll_track_rows: kernel takes float32, got "
-                        f"{pilot.dtype}")
-    lead = tuple(pilot.shape[:-1])
-    n = int(pilot.shape[-1])
-    for name, s in (("phase", phase), ("freq", freq)):
-        if (not s.is_cuda or s.dtype != torch.float32
-                or tuple(s.shape) != lead):
-            raise ValueError(
-                f"nco_pll_track_rows: {name} must be float32 CUDA of shape "
-                f"{lead}, got {s.dtype} {tuple(s.shape)} on {s.device}")
-    if n < 1 or pilot.numel() == 0:
-        raise ValueError(f"nco_pll_track_rows: empty pilot "
-                         f"{tuple(pilot.shape)}")
-    x2 = pilot.reshape(-1, n)
-    if x2.stride(-1) != 1 and n > 1:
-        raise ValueError("nco_pll_track_rows: pilot needs unit stride along "
-                         "its last axis")
-    rows = x2.shape[0]
-    p_in = phase.reshape(-1).contiguous()
-    f_in = freq.reshape(-1).contiguous()
-    traj = torch.empty((rows, n), dtype=torch.float32, device=pilot.device)
-    p_out = torch.empty_like(p_in)
-    f_out = torch.empty_like(f_in)
-    lib = build.library()
-    err = lib.rc_nco_pll(x2.data_ptr(), x2.stride(0), p_in.data_ptr(),
-                         f_in.data_ptr(), traj.data_ptr(), p_out.data_ptr(),
-                         f_out.data_ptr(), rows, n, kp, ki, w0,
-                         torch.cuda.current_stream().cuda_stream)
-    build.check(err, f"rc_nco_pll(rows={rows}, n={n})")
-    launches.count += 1
-    return traj.reshape(pilot.shape), p_out.reshape(lead), f_out.reshape(lead)
-
-
 def nco_pll_track_rows(pilot: torch.Tensor, kp: float, ki: float, w0: float,
                        phase: torch.Tensor, freq: torch.Tensor) -> Result:
     """The loop along the last axis of ``pilot`` with any leading batch
-    dims: the kernel on CUDA, :func:`nco_pll_track_plain` on the CPU."""
+    dims: the kernel's phase output (a scale of 1 a row) on CUDA,
+    :func:`nco_pll_track_plain` on the CPU. Returns the trajectory and
+    the new phase and frequency."""
     kp, ki, w0 = float(kp), float(ki), float(w0)
     if pilot.is_cuda:
-        return _nco_kernel(pilot, kp, ki, w0, phase, freq)
+        ones = torch.ones(pilot.shape[:-1], dtype=torch.float32,
+                          device=pilot.device)
+        return _phasor_kernel(pilot, ones, kp, ki, w0, phase, freq, "phase")
     if pilot.device.type != "cpu":
         raise ValueError(f"nco_pll_track_rows: no kernel for {pilot.device}")
     return nco_pll_track_plain(pilot, kp, ki, w0, phase, freq)
@@ -194,10 +152,10 @@ def nco_pll_track_rows(pilot: torch.Tensor, kp: float, ki: float, w0: float,
 
 def phasor_constants(kp: float, ki: float, w0: float
                      ) -> Tuple[float, float, float, float]:
-    """The phasor form's constants as float32 values: the gains over √2
-    (the phasor's length), ``(ki + kp)/√2`` (``ki + kp`` summed in
-    float32, as the phase form's kernel does) and ``ki/√2``, and ``(cw,
-    sw) = e^{j w0}``, each computed in float64 and rounded once."""
+    """The kernel's constants as float32 values: the gains over √2 (the
+    phasor's length), ``(ki + kp)/√2`` (``ki + kp`` summed in float32)
+    and ``ki/√2``, and ``(cw, sw) = e^{j w0}``, each computed in float64
+    and rounded once."""
     f32 = np.float32
     kk = float(f32(ki) + f32(kp))
     return (float(f32(kk / math.sqrt(2.0))),
@@ -250,18 +208,23 @@ def _phasor_span(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
                              torch.addcmul(ui, psi, qi)])))
 
 
-def nco_pll_subcarrier_plain(pilot: torch.Tensor, scale: torch.Tensor,
-                             kp: float, ki: float, w0: float,
-                             phase: torch.Tensor, freq: torch.Tensor
-                             ) -> Result:
-    """Plain version of the phasor form: a Python loop over the last axis
-    of ``pilot`` ``(..., n)`` (the raw pilot; ``scale`` ``(...)`` its
-    1/RMS a row), the leading axes as the vector, in float32. Returns the
-    subcarrier ``−sin 2φ`` ``(..., n)`` and the new ``phase`` (in
-    (−π, π]) and ``freq`` ``(...)``. It walks the kernel's tiles: a tile
-    on the series, done again with the exact rotation for the rows whose
+def nco_pll_phasor_plain(pilot: torch.Tensor, scale: torch.Tensor,
+                         kp: float, ki: float, w0: float,
+                         phase: torch.Tensor, freq: torch.Tensor,
+                         output: str) -> Result:
+    """Plain version of the kernel: a Python loop over the last axis of
+    ``pilot`` ``(..., n)`` (``scale`` ``(...)`` its 1/RMS a row), the
+    leading axes as the vector, in float32. Returns ``output`` (one of
+    :data:`OUTPUTS`) ``(..., n)`` and the new ``phase`` (in (−π, π]) and
+    ``freq`` ``(...)``. It walks the kernel's tiles: a tile on the
+    series, done again with the exact rotation for the rows whose
     ``|psi|`` passed :data:`PSI_MAX` in it (counted on :data:`redone`),
-    then ``|w|²`` back to 2; the ragged end sample by sample."""
+    then ``|w|²`` back to 2; the ragged end sample by sample. The phase
+    is ``torch.atan2`` (the kernel's branch-free arctangent is within
+    2e-6 rad of it)."""
+    if output not in OUTPUTS:
+        raise ValueError(f"nco_pll_phasor_plain: output {output!r} not in "
+                         f"{OUTPUTS}")
     f32 = torch.float32
     lead = tuple(pilot.shape[:-1])
     n = int(pilot.shape[-1])
@@ -298,63 +261,77 @@ def nco_pll_subcarrier_plain(pilot: torch.Tensor, scale: torch.Tensor,
     _phasor_span(a_all[end:], b_all[end:], w, f, rot, hist[end:], psis,
                  "either")
     redone.tensor("cpu").add_(count)
-    sub = (-hist[:, 0]).mul_(hist[:, 1])
-    return (sub.t().reshape(lead + (n,)),
+    if output == "subcarrier":
+        out = (-hist[:, 0]).mul_(hist[:, 1])
+    else:
+        out = torch.atan2(hist[:, 1], hist[:, 0])
+        out[0] = ph          # the phase given, as the scan's first sample
+    return (out.t().reshape(lead + (n,)),
             torch.atan2(w[1], w[0]).reshape(lead), f.reshape(lead))
+
+
+def nco_pll_subcarrier_plain(pilot: torch.Tensor, scale: torch.Tensor,
+                             kp: float, ki: float, w0: float,
+                             phase: torch.Tensor, freq: torch.Tensor
+                             ) -> Result:
+    """:func:`nco_pll_phasor_plain` with the subcarrier ``−sin 2φ`` as
+    its output: the plain version of :func:`nco_pll_subcarrier_rows`."""
+    return nco_pll_phasor_plain(pilot, scale, kp, ki, w0, phase, freq,
+                                "subcarrier")
 
 
 def _phasor_kernel(pilot: torch.Tensor, scale: torch.Tensor, kp: float,
                    ki: float, w0: float, phase: torch.Tensor,
-                   freq: torch.Tensor) -> Result:
+                   freq: torch.Tensor, output: str) -> Result:
     from radiocore_tpu_torch.kernels import build
+    what = f"K-NCO ({output})"
     if pilot.dtype != torch.float32:
-        raise TypeError(f"nco_pll_subcarrier_rows: kernel takes float32, "
-                        f"got {pilot.dtype}")
+        raise TypeError(f"{what}: kernel takes float32, got {pilot.dtype}")
     lead = tuple(pilot.shape[:-1])
     n = int(pilot.shape[-1])
     for name, s in (("scale", scale), ("phase", phase), ("freq", freq)):
         if (not s.is_cuda or s.dtype != torch.float32
                 or tuple(s.shape) != lead):
             raise ValueError(
-                f"nco_pll_subcarrier_rows: {name} must be float32 CUDA of "
-                f"shape {lead}, got {s.dtype} {tuple(s.shape)} on {s.device}")
+                f"{what}: {name} must be float32 CUDA of shape {lead}, got "
+                f"{s.dtype} {tuple(s.shape)} on {s.device}")
     if n < 1 or pilot.numel() == 0:
-        raise ValueError(f"nco_pll_subcarrier_rows: empty pilot "
-                         f"{tuple(pilot.shape)}")
+        raise ValueError(f"{what}: empty pilot {tuple(pilot.shape)}")
     x2 = pilot.reshape(-1, n)
     if x2.stride(-1) != 1 and n > 1:
-        raise ValueError("nco_pll_subcarrier_rows: pilot needs unit stride "
-                         "along its last axis")
+        raise ValueError(f"{what}: pilot needs unit stride along its last "
+                         f"axis")
     rows = x2.shape[0]
     s_in = scale.reshape(-1).contiguous()
     p_in = phase.reshape(-1).contiguous()
     f_in = freq.reshape(-1).contiguous()
-    sub = torch.empty((rows, n), dtype=torch.float32, device=pilot.device)
+    out = torch.empty((rows, n), dtype=torch.float32, device=pilot.device)
     p_out = torch.empty_like(p_in)
     f_out = torch.empty_like(f_in)
     count = redone.tensor(pilot.device)
     lib = build.library()
-    err = lib.rc_nco_pll_subcarrier(
+    err = lib.rc_nco_pll(
         x2.data_ptr(), x2.stride(0), s_in.data_ptr(), p_in.data_ptr(),
-        f_in.data_ptr(), sub.data_ptr(), p_out.data_ptr(), f_out.data_ptr(),
+        f_in.data_ptr(), out.data_ptr(), p_out.data_ptr(), f_out.data_ptr(),
         count.data_ptr(), rows, n, *phasor_constants(kp, ki, w0),
-        torch.cuda.current_stream().cuda_stream)
-    build.check(err, f"rc_nco_pll_subcarrier(rows={rows}, n={n})")
+        OUTPUTS.index(output), torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"rc_nco_pll(rows={rows}, n={n}, output={output})")
     launches.count += 1
-    return sub.reshape(pilot.shape), p_out.reshape(lead), f_out.reshape(lead)
+    return out.reshape(pilot.shape), p_out.reshape(lead), f_out.reshape(lead)
 
 
 def nco_pll_subcarrier_rows(pilot: torch.Tensor, scale: torch.Tensor,
                             kp: float, ki: float, w0: float,
                             phase: torch.Tensor, freq: torch.Tensor
                             ) -> Result:
-    """The phasor form along the last axis of ``pilot`` with any leading
-    batch dims, each row scaled by ``scale``: the kernel on CUDA,
-    :func:`nco_pll_subcarrier_plain` on the CPU. Returns the subcarrier
-    and the new phase and frequency."""
+    """The loop along the last axis of ``pilot`` with any leading batch
+    dims, each row scaled by ``scale``: the kernel's subcarrier output on
+    CUDA, :func:`nco_pll_subcarrier_plain` on the CPU. Returns the
+    subcarrier and the new phase and frequency."""
     kp, ki, w0 = float(kp), float(ki), float(w0)
     if pilot.is_cuda:
-        return _phasor_kernel(pilot, scale, kp, ki, w0, phase, freq)
+        return _phasor_kernel(pilot, scale, kp, ki, w0, phase, freq,
+                              "subcarrier")
     if pilot.device.type != "cpu":
         raise ValueError(f"nco_pll_subcarrier_rows: no kernel for "
                          f"{pilot.device}")
@@ -370,9 +347,9 @@ def nco_chain_probe(n: int, chain: str, lanes: int, kp: float, ki: float,
     registers. Returns ``(result, cycles)`` on the card, one value per
     lane: the final phase (kept so that the compiler keeps the chain) and
     the SM cycles the loop took (``clock64``). Does not synchronise and
-    counts no launch; the chain ``sample`` runs ``n // TILE`` tiles,
-    ``phasor_sample`` ``n // PHASOR_TILE``. A measuring aid for the card:
-    there is no plain version."""
+    counts no launch; the chain ``phasor_sample`` runs ``n //
+    PHASOR_TILE`` tiles. A measuring aid for the card: there is no plain
+    version."""
     from radiocore_tpu_torch.kernels import build
     device = torch.device(device)
     if device.type != "cuda":

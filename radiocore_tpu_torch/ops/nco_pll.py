@@ -5,10 +5,11 @@ The classic 2nd-order loop (phase detector → PI loop filter → NCO) as the
 accuracy-mode alternative to the analytic-signal pilot tracker: carrier
 tracking with a controlled loop bandwidth, its state streaming across
 chunks. The recurrence is sequential per station; on a CUDA tensor it
-runs as the kernel K-NCO (``kernels/nco_pll.py``), on the CPU as that
-module's plain loop. :func:`nco_pll_track` returns the phase trajectory;
-:func:`nco_pll_subcarrier`, for the stereo decoder, the subcarrier alone,
-by K-NCO's phasor form (no phase on the per-sample chain).
+runs as the kernel K-NCO (``kernels/nco_pll.py``), which carries the NCO
+as a phasor (no phase on the per-sample chain), on the CPU as that
+module's plain loops. :func:`nco_pll_track` returns the phase trajectory
+(on the CPU the scan's own order; on a card the kernel's phase output);
+:func:`nco_pll_subcarrier`, for the stereo decoder, the subcarrier alone.
 """
 
 from __future__ import annotations
@@ -58,7 +59,10 @@ def nco_pll_track(pilot: torch.Tensor, gains: PLLGains,
     ``pilot`` (..., N) float32 — normalize its amplitude beforehand (e.g.
     the bandpassed pilot divided by its RMS) so the loop gains hold.
     Phase detector: ``e[n] = pilot[n] · cos(φ[n])``; the trajectory holds
-    the phase the detector saw for each sample.
+    the phase the detector saw for each sample. On the CPU the loop in
+    the scan's order; on a CUDA tensor K-NCO's phase output, which
+    rounds otherwise (the phasor's ``atan2`` after the first sample, the
+    phase given).
     """
     kp, ki, w0 = gains
     traj, phase, freq = knco.nco_pll_track_rows(

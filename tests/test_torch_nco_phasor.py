@@ -1,10 +1,12 @@
-"""K-NCO's phasor form on the CPU (kernels/nco_pll.py
-``nco_pll_subcarrier_plain``, ops/nco_pll.py ``nco_pll_subcarrier``):
-the subcarrier ``−sin 2φ`` and the carried state against a float64 loop
-in the scan's order, over chained chunks at the ``wbfm24_pll`` cell's
-rate and gains, at a wide loop (where the series' guard redoes tiles with
-the exact rotation) and from a wild initial phase; a loop reset each
-chunk; the guard tile by tile; the entry that normalises the pilot.
+"""K-NCO's plain loop on the CPU (kernels/nco_pll.py
+``nco_pll_phasor_plain``, ops/nco_pll.py ``nco_pll_subcarrier``): the
+subcarrier ``−sin 2φ`` and the carried state against a float64 loop in
+the scan's order, over chained chunks at the ``wbfm24_pll`` cell's rate
+and gains, at a wide loop (where the series' guard redoes tiles with the
+exact rotation) and from a wild initial phase; a loop reset each chunk;
+the guard tile by tile; the entry that normalises the pilot; the phase
+output (``nco_pll_track``'s trajectory on the card) against the float64
+loop over the kernel's walk of a row and from a wild initial phase.
 
 The plain loop runs one Python iteration a sample, about 35 µs for 4
 rows, so the chunks are 0.1 s of a 240 kS/s station. Imports no JAX."""
@@ -29,11 +31,17 @@ ROWS = 4
 # over a locked chunk (tests/test_torch_pipeline_pll.py): the subcarrier
 # -sin 2φ then moves by up to twice that. Acquiring from phase 0 (the
 # first chunk) float32 loops drift further before the feedback pulls them
-# together: the phase form's own plain loop reads 1.6e-4 on these pilots.
+# together: the scan-order float32 loop (nco_pll_track_plain) reads
+# 1.6e-4 on these pilots.
 DRIFT_RAD = 1.7e-5
 SUB_LOCKED = 2 * DRIFT_RAD
 SUB_ACQUIRE = 4e-4
-FREQ = 1e-7           # rad a sample, as the phase form's tests
+# From a given phase with the pilot in step, a float32 loop and the
+# float64 one part by up to about 3e-5 rad over the first few thousand
+# samples before the feedback pulls them together (the float32 scan reads
+# as much as the phasor): chip_smoke.py NCO_PLAIN_MAX.
+START_RAD = 5e-5
+FREQ = 1e-7           # rad a sample
 
 
 def _pilots(seed, rows=ROWS, n=CHUNKS * N, amp=0.1):
@@ -225,8 +233,9 @@ def test_nan_row_stays_nan():
 
 
 def test_the_entry_is_the_trajectory_s_subcarrier():
-    """``nco_pll_subcarrier`` on the raw pilot gives what the phase form
-    gives on the pilot divided by its RMS, through ``pll_subcarrier``,
+    """``nco_pll_subcarrier`` on the raw pilot gives what
+    ``nco_pll_track`` (on the CPU the scan-order loop) gives on the pilot
+    divided by its RMS, through ``pll_subcarrier``,
     within the two float32 loops' drift; the pilot's level does not
     matter; a CPU tensor counts no launch; the state given is left as it
     was."""
@@ -245,3 +254,84 @@ def test_the_entry_is_the_trajectory_s_subcarrier():
     np.testing.assert_allclose(new.freq, old.freq, atol=FREQ, rtol=0)
     loud, _ = npl.nco_pll_subcarrier(8.0 * x, gains, state)
     assert torch.equal(loud, sub)
+
+
+def _walk_pilots(n, aligned, seed):
+    """Three rms-normalised pilots at 262 144 S/s, 19 kHz + 0, 2, −1 Hz,
+    noise at 0.1 of the rms; float32 ``(3, n)``, the rows 4 bytes off a
+    16-byte boundary unless ``aligned`` (a view with a row stride of
+    ``n + 1``)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 262_144
+    f = 19e3 + np.array([[0.0], [2.0], [-1.0]])
+    buf = np.empty((3, n + 1), np.float32)
+    x = buf[:, :n] if aligned else buf[:, 1:]
+    x[:] = (np.sqrt(2.0) * np.sin(2 * np.pi * f * t
+                                  + np.array([[0.1], [1.0], [2.5]]))
+            + 0.1 * rng.standard_normal((3, n)))
+    return x
+
+
+@pytest.mark.parametrize("n,aligned", [(4096, True), (4099, True),
+                                       (4097, False), (7, True), (16, True)])
+def test_phase_output_walks_every_sample_once(n, aligned):
+    """The phase output over the kernel's walk of a row (80-sample tiles,
+    by 16-byte accesses on a 16-byte boundary and by scalar ones off it,
+    the ragged end sample by sample): its first sample is the phase
+    given; the trajectory and the end phase within DRIFT_RAD of the
+    float64 loop modulo 2π, the frequency within FREQ; the end state is
+    the subcarrier output's bit for bit, and the subcarrier is −sin 2φ of
+    the trajectory within SUB_LOCKED. At a 5 kHz loop every whole tile of
+    every row is redone, in both outputs alike, and the ragged end is
+    not."""
+    x = _walk_pilots(n, aligned, n)
+    rng = np.random.default_rng(n)
+    phase0 = rng.uniform(-1, 1, 3).astype(np.float32)
+    freq0 = (1e-5 * rng.standard_normal(3)).astype(np.float32)
+    for bw, tiles in ((50.0, 0), (5000.0, 3 * (n // knco.PHASOR_TILE))):
+        gains = npl.pll_design(262_144, 19e3, bw)
+        args = (torch.from_numpy(x), torch.ones(3), *gains,
+                torch.from_numpy(phase0), torch.from_numpy(freq0))
+        before = knco.redone.read()
+        traj, phase, freq = knco.nco_pll_phasor_plain(*args, "phase")
+        redid = knco.redone.read() - before
+        sub, sub_phase, sub_freq = knco.nco_pll_subcarrier_plain(*args)
+        assert redid == knco.redone.read() - before - redid == tiles, bw
+        assert torch.equal(traj[:, 0], args[-2])
+        assert torch.equal(phase, sub_phase) and torch.equal(freq, sub_freq)
+        want = _loop64(x.astype(np.float64), gains,
+                       phase0.astype(np.float64), freq0.astype(np.float64))
+        assert _wrapped(traj, want[0]) <= DRIFT_RAD, bw
+        assert _wrapped(phase, want[1]) <= DRIFT_RAD, bw
+        np.testing.assert_allclose(freq, want[2], atol=FREQ, rtol=0)
+        assert float((sub + torch.sin(2 * traj)).abs().max()) <= SUB_LOCKED
+
+
+@pytest.mark.parametrize("wild", [50.0, -50.0])
+def test_phase_output_from_a_wild_initial_phase(wild):
+    """An initial phase of ±50 rad, the pilot in step with it modulo 2π:
+    the phase output's first sample is that phase, as the scan's; no tile
+    is redone (the phasor has no phase to wrap); the trajectory and the
+    end phase stay within START_RAD of the float64 loop modulo 2π (a row
+    started in range beside it too), the frequency within FREQ."""
+    rng = np.random.default_rng(13)
+    theta = 2 * np.pi * 19e3 * np.arange(2048) / FS + np.array([[wild],
+                                                                 [0.4]])
+    x = torch.from_numpy((0.1 * np.sqrt(2.0) * np.sin(theta) + 1e-3
+                          * rng.standard_normal(theta.shape)).astype(
+                              np.float32))
+    s = _scale(x)
+    gains = npl.pll_design(FS, 19e3, 50.0)
+    phase0 = torch.tensor([wild, 0.4])
+    zeros = torch.zeros(2)
+    before = knco.redone.read()
+    traj, phase, freq = knco.nco_pll_phasor_plain(x, s, *gains, phase0,
+                                                  zeros, "phase")
+    assert knco.redone.read() == before
+    assert float(traj[0, 0]) == wild
+    x64 = x.double().numpy()
+    want = _loop64(x64 / np.sqrt(np.mean(x64 * x64, -1, keepdims=True)),
+                   gains, phase0.double().numpy(), np.zeros(2))
+    assert _wrapped(traj, want[0]) <= START_RAD
+    assert _wrapped(phase, want[1]) <= START_RAD
+    np.testing.assert_allclose(freq, want[2], atol=FREQ, rtol=0)

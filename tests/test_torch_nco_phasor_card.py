@@ -1,9 +1,12 @@
-"""K-NCO's phasor form on the card, at the ``wbfm24_pll`` plan (24
-stations of 240 kS/s on a 10 MS/s band, the ``resident_pll`` mix's band):
-the kernel against its plain loop on the pilots the step hands it, on and
-off a 16-byte boundary; the compiled step against its eager body with one
-launch a step and no tile redone; the redone-tile counter on a wide loop
-and over 20 s of the cell's traffic; the kernel's name in a profile.
+"""K-NCO on the card, at the ``wbfm24_pll`` plan (24 stations of 240 kS/s
+on a 10 MS/s band, the ``resident_pll`` mix's band): the kernel's
+subcarrier output against its plain loop on the pilots the step hands it,
+on and off a 16-byte boundary; the compiled step against its eager body
+with one launch a step and no tile redone; the redone-tile counter on a
+wide loop and over 20 s of the cell's traffic; the kernel's name in a
+profile; its phase output (``nco_pll_track``'s trajectory) against its
+plain loop and a float64 loop on the same pilots, and under a CUDA graph
+against eager with one launch a call.
 
 Every test here needs a CUDA card and skips without one. This file
 imports no JAX, so that it runs where only the port is installed; from
@@ -30,10 +33,12 @@ pytestmark = pytest.mark.card
 SEED = (1 << 31) + 2222
 CHUNKS = 3
 # The kernel against its plain loop: two float32 loops that round
-# differently drift apart by up to 5e-5 rad (the phase form's bound,
-# chip_smoke.py NCO_PLAIN_MAX), the subcarrier -sin 2φ by twice that.
+# differently drift apart by up to 5e-5 rad (chip_smoke.py
+# NCO_PLAIN_MAX), the subcarrier -sin 2φ by twice that; against the
+# float64 loop, chip_smoke.py NCO_F64_MAX.
 PLAIN_RAD = 5e-5
 SUB = 2 * PLAIN_RAD
+F64_RAD = 2e-4
 SOAK_S = 20.0
 
 
@@ -198,3 +203,71 @@ def test_the_profiler_names_the_kernel(handed):
     names = {e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA}
     assert any("nco_pll_kernel_phasor" in n for n in names), names
+
+
+def _loop64(x, gains, phase, freq):
+    """The loop in float64 in the scan's order over ``x`` ``(rows, n)``:
+    the trajectory and the end state, NumPy."""
+    import numpy as np
+    kp, ki, w0 = gains
+    xs = np.ascontiguousarray(x.T)
+    traj = np.empty_like(xs)
+    ph, fr = phase.copy(), freq.copy()
+    for t in range(xs.shape[0]):
+        traj[t] = ph
+        err = xs[t] * np.cos(ph)
+        fr = fr + ki * err
+        ph = ph + w0 + fr + kp * err
+        ph = np.where(ph > np.pi, ph - 2 * np.pi, ph)
+    return traj.T, ph, fr
+
+
+def _wrapped(a, b):
+    return float(((a.double() - b.double() + math.pi) % (2 * math.pi)
+                  - math.pi).abs().max())
+
+
+def test_phase_output_matches_its_plain_loop_and_float64(handed):
+    """``nco_pll_track`` on the card (the kernel's phase output, a scale
+    of 1) on the pilot the step hands the loop, divided by its RMS: the
+    first sample is the phase given; the trajectory and the end phase
+    within PLAIN_RAD of its plain loop and within F64_RAD of the float64
+    loop modulo 2π, the frequency within 1e-7 of both; no tile redone."""
+    from radiocore_tpu_torch.kernels import nco_pll as knco
+    from radiocore_tpu_torch.ops.nco_pll import nco_pll_track
+    pilot, gains, state = handed
+    x = pilot * _scale(pilot)[:, None]
+    before = knco.redone.read(x.device)
+    traj, new = nco_pll_track(x, gains, state)
+    traj, phase, freq = traj.cpu(), new.phase.cpu(), new.freq.cpu()
+    assert knco.redone.read(x.device) == before
+    assert torch.equal(traj[:, 0], state.phase.cpu())
+    held = (x.cpu(), state.phase.cpu(), state.freq.cpu())
+    ref = knco.nco_pll_phasor_plain(held[0], torch.ones(x.shape[0]), *gains,
+                                    *held[1:], "phase")
+    x64, p64, f64 = (v.double().numpy() for v in held)
+    want = [torch.from_numpy(v) for v in _loop64(x64, gains, p64, f64)]
+    for other, bound in ((ref, PLAIN_RAD), (want, F64_RAD)):
+        gaps = (_wrapped(traj, other[0]), _wrapped(phase, other[1]),
+                float((freq.double() - other[2].double()).abs().max()))
+        assert max(gaps[:2]) <= bound and gaps[2] <= 1e-7, (bound, gaps)
+
+
+def test_phase_output_graph_equals_eager_with_one_launch_a_call(handed):
+    from radiocore_tpu_torch.kernels import nco_pll as knco
+    from radiocore_tpu_torch.ops.nco_pll import nco_pll_track
+    from radiocore_tpu_torch.runtime.graphs import compile_step
+    pilot, gains, state = handed
+    x = pilot * _scale(pilot)[:, None]
+    step = compile_step(lambda x, st: nco_pll_track(x, gains, st), x.device)
+    launches = knco.launches.count
+    calls = [step(x, state), step(x, state), step.eager(x, state)]
+    torch.cuda.synchronize()
+    assert step.graph_count == 1
+    # Warm-up and capture leave the counter as it was.
+    assert knco.launches.count - launches == len(calls)
+    want = calls[-1]
+    for got in calls[:2]:
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].phase, want[1].phase)
+        assert torch.equal(got[1].freq, want[1].freq)
