@@ -58,12 +58,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    few rows, beside the float32 scan's own distance, modulo 2 pi; prints
    each instantiation's opcodes and the md5 of its instruction text from
    ``cuobjdump -sass``; times the phase output at 64 x 262 144 and
-   24 x 240 000 and the probe's chains (``rc_nco_chain_probe``); then the
-   subcarrier output the nco step launches (``nco_pll_subcarrier_rows``)
-   against its plain loop on the same pilots at 64 x 262 144 over two
-   chunks (acquiring, then from the carried state), on rows off a 16-byte
-   boundary at an odd length and at a 5 kHz loop (the tiles each redoes
-   counted alike), timed beside its bytes bound and the chain's latency;
+   24 x 240 000 and the probe's chains (``rc_nco_chain_probe``: the bare
+   recurrence, the sample without memory, the chain lane's sample through
+   shared memory), each with one and 32 lanes; then the subcarrier output
+   the nco step launches (``nco_pll_subcarrier_rows``) against its plain
+   loop on the same pilots at 64 x 262 144 over two chunks (acquiring,
+   then from the carried state), on rows off a 16-byte boundary at an odd
+   length and at a 5 kHz loop (the tiles each redoes counted alike),
+   timed at 64 x 262 144 and 24 x 240 000 beside its bytes bound and the
+   chain's latency, with its cycles a sample and the tiles its timed
+   calls redid and found not yet staged (``redone``, ``starved``);
 9. runs K-FIR at the pilot bandpass's shape (41 taps, 64 x 262 390, the
    odd extension included) against float64, and ``zero_phase_fir`` on the
    card against the port on the CPU;
@@ -1319,13 +1323,13 @@ def wrapped(a, b):
     return torch.where(d <= -math.pi, d + 2 * math.pi, d)
 
 
-def pilots(gen, rows: int, n: int, device):
-    """``rows`` rms-normalised 19 kHz pilots of ``n`` samples at
-    ``STATION`` samples a second, float32: each with its own frequency
-    offset (within +-3 Hz) and start phase, plus noise at 0.1 of the rms."""
+def pilots(gen, rows: int, n: int, device, rate: int = STATION):
+    """``rows`` rms-normalised 19 kHz pilots of ``n`` samples at ``rate``
+    samples a second, float32: each with its own frequency offset (within
+    +-3 Hz) and start phase, plus noise at 0.1 of the rms."""
     import torch
     f64 = dict(dtype=torch.float64, device=device)
-    t = torch.arange(n, **f64) / STATION
+    t = torch.arange(n, **f64) / rate
     f = 19e3 + 6.0 * (torch.rand(rows, 1, generator=gen, **f64) - 0.5)
     phi = 2 * math.pi * torch.rand(rows, 1, generator=gen, **f64)
     x = math.sqrt(2.0) * torch.sin(2 * math.pi * f * t + phi)
@@ -1552,14 +1556,20 @@ def check_nco(device, gen) -> dict:
                 return knco.nco_chain_probe(n, chain, lanes, *gains)
             probe_ms = time_ms(run_probe, reps=3, warmup=1)
             _, cycles = run_probe()
-            links = (n - n % knco.PHASOR_TILE if chain == "phasor_sample"
-                     else n)
+            links = n - n % knco.PHASOR_TILE if chain != "phasor" else n
             probe[chain, lanes] = (probe_ms,
                                    float(cycles.double().max()) / links)
+    # The chain lane beside three busy warps: on schedulers of their own,
+    # they leave its cycles as they were.
+    _, cycles = knco.nco_chain_probe(n, "chain_lane", 1, *gains,
+                                     helpers=knco.HELPERS)
+    busy = float(cycles.double().max()) / (n - n % knco.PHASOR_TILE)
     print(f"[kernel] K-NCO phase output: " + "; ".join(times))
     print(f"[kernel] K-NCO chain probe over {n} links: " + "; ".join(
         f"{chain} x{lanes} lanes {pms:.3f} ms, {cyc:.1f} cycles a link"
-        for (chain, lanes), (pms, cyc) in probe.items()))
+        for (chain, lanes), (pms, cyc) in probe.items())
+        + f"; chain_lane x1 lane beside 3 busy warps {busy:.1f} cycles a "
+        f"link")
     return dict(**check_nco_phasor(rows, n, gains, gen, probe, mhz),
                 library_ms=None)
 
@@ -1571,9 +1581,10 @@ def check_nco_phasor(rows, n, gains, gen, probe, mhz) -> dict:
     acquiring from a random phase, the second from the state the kernel
     carried; then on rows of the second off a 16-byte boundary at an odd
     length, and at a loop of ``NCO_WIDE_HZ`` whose tiles the guard
-    redoes, the tiles each redid counted alike. Its time on the second
-    chunk beside its bytes bound and its latency bound (the phasor chain
-    over a row, from ``probe``). Returns the kernel's entry."""
+    redoes, the tiles each redid counted alike; then at the wbfm24 cells'
+    shape, acquiring from phase 0. Its time on the second chunk beside its
+    bytes bound and its latency bound (the phasor chain over a row, from
+    ``probe``), and at the wbfm24 shape. Returns the kernel's entry."""
     import numpy as np
     import torch
     from radiocore_tpu_torch.kernels import nco_pll as knco
@@ -1651,11 +1662,26 @@ def check_nco_phasor(rows, n, gains, gen, probe, mhz) -> dict:
                   freq[:4])
 
     args = (scale(x), *gains, phase, freq)
+    counts = (knco.redone.read(card), knco.starved.read(card))
     ms = time_ms(lambda: knco.nco_pll_subcarrier_rows(x, *args), reps=5,
                  warmup=1)
     (_, device_ms), = [(k, t) for k, t in kernel_times_ms(
         lambda: knco.nco_pll_subcarrier_rows(x, *args), reps=3)
         if "nco_pll_kernel_phasor" in k]
+    # The wbfm24 cells' shape, the loop designed for its rate: from phase
+    # 0, as the cell's first chunk, so acquiring, against its plain loop;
+    # then the same call's time.
+    x24 = pilots(gen, len(W24_OFFSETS), W24_STATION, card, W24_STATION)
+    z24 = torch.zeros(x24.shape[0], device=card)
+    gains24 = pll_design(W24_STATION, 19e3, 50.0)
+    against_plain(f"{x24.shape[0]}x{W24_STATION} acquiring from phase 0",
+                  x24, gains24, z24, z24, held_from=NCO_ACQUIRE)
+    args24 = (scale(x24), *gains24, z24, z24)
+    (_, ms24), = [(k, t) for k, t in kernel_times_ms(
+        lambda: knco.nco_pll_subcarrier_rows(x24, *args24), reps=3)
+        if "nco_pll_kernel_phasor" in k]
+    redid = knco.redone.read(card) - counts[0]
+    starved = knco.starved.read(card) - counts[1]
     # Read the pilot and its scale, write the subcarrier; the state.
     least = bound(4 * (2 * x.numel() + 5 * rows), 21.0 * x.numel())
     latency_ms = min(probe["phasor", lanes][0] for lanes in (1, 32))
@@ -1664,14 +1690,21 @@ def check_nco_phasor(rows, n, gains, gen, probe, mhz) -> dict:
           f"{device_ms * 1e-3 * mhz * 1e6 / n:.1f} cycles a sample at "
           f"{mhz:.0f} MHz; least {latency_ms:.3f} ms by latency (the "
           f"phasor chain over a row: {latency_ms / device_ms:.1%}), "
-          f"{least['bound_ms']:.3f} ms by {least['bound_by']}; plain loops "
-          f"{plain_s[0]:.1f} s on the host; no library call")
+          f"{least['bound_ms']:.3f} ms by {least['bound_by']}; "
+          f"{x24.shape[0]}x{W24_STATION}: {ms24:.3f} ms device time, "
+          f"{ms24 * 1e-3 * mhz * 1e6 / W24_STATION:.1f} cycles a sample; "
+          f"over the timed calls of both shapes and the {x24.shape[0]}x"
+          f"{W24_STATION} check redone {redid}, starved {starved}; plain "
+          f"loops {plain_s[0]:.1f} s on the host; no library call")
+    if redid or starved:
+        raise AssertionError(f"K-NCO subcarrier on locked pilots: redone "
+                             f"{redid}, starved {starved}")
     if latency_ms > least["bound_ms"]:
         least = dict(bound_ms=latency_ms, bound_by="latency")
     return dict(kernel="nco_pll_kernel_phasor", max_abs_err=max(errs),
                 ms=ms, device_ms=device_ms, plain_ms=plain_s[0] * 1e3,
                 plain_shape=f"2 x {rows}x{n}, {rows}x{NCO_OFF_N}, "
-                f"4x{NCO_OFF_N - 3}", **least)
+                f"4x{NCO_OFF_N - 3}, {x24.shape[0]}x{W24_STATION}", **least)
 
 
 def check_fir_pilot(device, gen) -> None:

@@ -133,9 +133,9 @@ _SIGNATURES = {
     "rc_rfft_untangle": [_P, _P, _L, _I, _P],
     "rc_irfft_tangle": [_P, _P, _L, _I, _P],
     "rc_mixed_column": [_P, _P, _I, _L, _I, _P, _P],
-    "rc_nco_pll": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _L, _L, _F, _F, _F,
-                   _F, _I, _P],
-    "rc_nco_chain_probe": [_P, _P, _L, _I, _I, _F, _F, _F, _F, _P],
+    "rc_nco_pll": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _F,
+                   _F, _F, _F, _I, _P],
+    "rc_nco_chain_probe": [_P, _P, _L, _I, _I, _I, _F, _F, _F, _F, _P],
 }
 
 

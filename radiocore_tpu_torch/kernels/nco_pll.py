@@ -12,9 +12,11 @@ and float32, with the rows as the vector, one Python iteration per
 sample: what :func:`nco_pll_track_rows` runs on a CPU tensor.
 
 The kernel (``csrc/nco_pll.cu``, ``nco_pll_kernel_phasor``) gives a row
-to a thread and carries the NCO as the phasor ``w = √2·e^{jφ}``. It
-reads the pilot with a per-row scale (1/RMS), and per sample, with ``u =
-w·e^{jw0}`` and ``h = ψ/2``::
+to a lane of a block's chain warp, whose helper warps stage the pilot and
+write the output (:func:`nco_geometry`; a chain lane that finds its next
+tile not yet staged counts it on :data:`starved`), and carries the NCO as
+the phasor ``w = √2·e^{jφ}``. It reads the pilot with a per-row scale
+(1/RMS), and per sample, with ``u = w·e^{jw0}`` and ``h = ψ/2``::
 
     ψ = f + (kp + ki)·s·x·Re w/√2;  f' = f + ki·s·x·Re w/√2
     w' = (ur − ψ·(ui + h·ur), ui + ψ·(ur − h·ui))
@@ -54,10 +56,10 @@ from radiocore_tpu_torch.kernels.fft_rows import LaunchCounter
 OUTPUTS = ("subcarrier", "phase")
 
 # The chains rc_nco_chain_probe times (csrc/nco_pll.cu
-# nco_chain_probe_kernel): the kernel's bare recurrence (four dependent
-# FP32 operations a sample); the kernel's whole sample without its loads
-# and stores.
-PROBE_CHAINS = ("phasor", "phasor_sample")
+# nco_chain_probe_kernel): the bare recurrence (four dependent FP32
+# operations a sample); the whole sample without its loads and stores;
+# the chain lane's tiles, (a, b) from shared memory and w stored back.
+PROBE_CHAINS = ("phasor", "phasor_sample", "chain_lane")
 
 # The series limit (csrc/nco_pll.cu kNcoPsiMax): the series (1 - psi^2/2,
 # psi) is e^{j psi} within 2^-26 up to here.
@@ -67,15 +69,52 @@ PSI_MAX = 2.0 ** -8
 # and |w|'s renormalisation act once a tile.
 PHASOR_TILE = 80
 
+# A block of the kernel (csrc/nco_pll.cu): one chain warp whose lanes each
+# own a row, at most CHAIN_LANES, and HELPERS helper warps.
+CHAIN_LANES = 32
+HELPERS = 3
+
 launches = LaunchCounter()
 
 
-class TileCounter:
-    """Tiles of K-NCO done again with the exact rotation, one count a
-    device: a persistent int64 on that device, added to by the kernel (so
-    it counts under graph replay too) or by the plain loop."""
+def nco_geometry(rows: int, sms: int) -> Tuple[int, int]:
+    """The kernel's launch for ``rows`` rows on a card of ``sms`` SMs:
+    ``(blocks, lanes)``, ``lanes`` rows a block (the chain warp's lanes, a
+    power of two). One block an SM while the rows allow it: a warp issues
+    once for all its lanes, so rows share a chain warp for free, and a
+    block alone on its SM keeps its chain warp on a scheduler no other
+    warp uses (the SM gives its four schedulers to warps by index). Past
+    CHAIN_LANES rows an SM, blocks share SMs. Every block has HELPERS
+    helper warps."""
+    if rows < 1 or sms < 1:
+        raise ValueError(f"nco_geometry: rows={rows}, sms={sms}")
+    per_sm = -(-rows // sms)
+    lanes = 1
+    while lanes < CHAIN_LANES and lanes < per_sm:
+        lanes *= 2
+    return -(-rows // lanes), lanes
 
-    def __init__(self) -> None:
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    count = _SMS.get(index)
+    if count is None:
+        count = torch.cuda.get_device_properties(index).multi_processor_count
+        _SMS[index] = count
+    return count
+
+
+_SMS: Dict[int, int] = {}
+
+
+class TileCounter:
+    """A count of K-NCO's tiles, one a device: a persistent int64 on that
+    device, added to by the kernel (so it counts under graph replay too)
+    or by the plain loop. ``name`` is the module's name for it."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
         self._counts: Dict[torch.device, torch.Tensor] = {}
 
     def tensor(self, device: torch.device | str) -> torch.Tensor:
@@ -89,8 +128,8 @@ class TileCounter:
             if (device.type == "cuda"
                     and torch.cuda.is_current_stream_capturing()):
                 raise RuntimeError(
-                    "nco_pll.redone: first use on a device inside a graph "
-                    "capture; run the phasor once outside it first")
+                    f"nco_pll.{self.name}: first use on a device inside a "
+                    f"graph capture; run the phasor once outside it first")
             t = torch.zeros(1, dtype=torch.int64, device=device)
             self._counts[device] = t
         return t
@@ -103,7 +142,12 @@ class TileCounter:
         return int(t.item())
 
 
-redone = TileCounter()
+# Tiles done again with the exact rotation.
+redone = TileCounter("redone")
+# Tiles a chain lane found not yet staged by its helpers, past each row's
+# first: above 0, the helpers set the kernel's pace, not the chain. The
+# plain loop has no helpers and leaves it as it is.
+starved = TileCounter("starved")
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -308,14 +352,17 @@ def _phasor_kernel(pilot: torch.Tensor, scale: torch.Tensor, kp: float,
     out = torch.empty((rows, n), dtype=torch.float32, device=pilot.device)
     p_out = torch.empty_like(p_in)
     f_out = torch.empty_like(f_in)
-    count = redone.tensor(pilot.device)
+    _, lanes = nco_geometry(rows, _sm_count(pilot.device))
     lib = build.library()
     err = lib.rc_nco_pll(
         x2.data_ptr(), x2.stride(0), s_in.data_ptr(), p_in.data_ptr(),
         f_in.data_ptr(), out.data_ptr(), p_out.data_ptr(), f_out.data_ptr(),
-        count.data_ptr(), rows, n, *phasor_constants(kp, ki, w0),
-        OUTPUTS.index(output), torch.cuda.current_stream().cuda_stream)
-    build.check(err, f"rc_nco_pll(rows={rows}, n={n}, output={output})")
+        redone.tensor(pilot.device).data_ptr(),
+        starved.tensor(pilot.device).data_ptr(), rows, n, lanes,
+        *phasor_constants(kp, ki, w0), OUTPUTS.index(output),
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"rc_nco_pll(rows={rows}, n={n}, lanes={lanes}, "
+                     f"output={output})")
     launches.count += 1
     return out.reshape(pilot.shape), p_out.reshape(lead), f_out.reshape(lead)
 
@@ -339,17 +386,18 @@ def nco_pll_subcarrier_rows(pilot: torch.Tensor, scale: torch.Tensor,
 
 
 def nco_chain_probe(n: int, chain: str, lanes: int, kp: float, ki: float,
-                    w0: float, device: torch.device | str = "cuda"
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    w0: float, device: torch.device | str = "cuda",
+                    helpers: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the latency probe: one block of ``lanes`` threads (1..32),
     each running ``n`` links of the chain named by ``chain`` (one of
-    :data:`PROBE_CHAINS`) on a pilot sample of 1 and the gains, all in
-    registers. Returns ``(result, cycles)`` on the card, one value per
+    :data:`PROBE_CHAINS`) on a pilot sample of 1 and the gains, with
+    ``helpers`` (0..3) warps beside them kept busy with multiply-adds and
+    shared stores. Returns ``(result, cycles)`` on the card, one value per
     lane: the final phase (kept so that the compiler keeps the chain) and
     the SM cycles the loop took (``clock64``). Does not synchronise and
-    counts no launch; the chain ``phasor_sample`` runs ``n //
-    PHASOR_TILE`` tiles. A measuring aid for the card: there is no plain
-    version."""
+    counts no launch; the chains ``phasor_sample`` and ``chain_lane`` run
+    ``n // PHASOR_TILE`` tiles. A measuring aid for the card: there is no
+    plain version."""
     from radiocore_tpu_torch.kernels import build
     device = torch.device(device)
     if device.type != "cuda":
@@ -358,14 +406,15 @@ def nco_chain_probe(n: int, chain: str, lanes: int, kp: float, ki: float,
     if chain not in PROBE_CHAINS:
         raise ValueError(f"nco_chain_probe: chain {chain!r} not in "
                          f"{PROBE_CHAINS}")
-    if not (n >= 1 and 1 <= lanes <= 32):
-        raise ValueError(f"nco_chain_probe: n={n}, lanes={lanes}")
+    if not (n >= 1 and 1 <= lanes <= 32 and 0 <= helpers <= HELPERS):
+        raise ValueError(f"nco_chain_probe: n={n}, lanes={lanes}, "
+                         f"helpers={helpers}")
     result = torch.empty(lanes, dtype=torch.float32, device=device)
     cycles = torch.empty(lanes, dtype=torch.int64, device=device)
     lib = build.library()
     err = lib.rc_nco_chain_probe(
         result.data_ptr(), cycles.data_ptr(), int(n),
-        PROBE_CHAINS.index(chain), int(lanes), 1.0, float(kp),
+        PROBE_CHAINS.index(chain), int(lanes), int(helpers), 1.0, float(kp),
         float(ki), float(w0), torch.cuda.current_stream(device).cuda_stream)
     build.check(err, f"rc_nco_chain_probe(n={n}, chain={chain}, "
                      f"lanes={lanes})")

@@ -335,3 +335,116 @@ def test_phase_output_from_a_wild_initial_phase(wild):
     assert _wrapped(traj, want[0]) <= START_RAD
     assert _wrapped(phase, want[1]) <= START_RAD
     np.testing.assert_allclose(freq, want[2], atol=FREQ, rtol=0)
+
+
+@pytest.mark.parametrize("rows, sms, blocks, lanes", [
+    (24, 132, 24, 1),       # the wbfm24 cells: one row a block
+    (64, 132, 64, 1),       # the 64-station plan
+    (132, 132, 132, 1),     # a row on every SM
+    (133, 132, 67, 2),      # past one row an SM: two lanes a chain warp
+    (265, 132, 67, 4),
+    (600, 132, 75, 8),
+    (4224, 132, 132, 32),   # a full chain warp on every SM
+    (4225, 132, 133, 32),   # past that, blocks share SMs
+    (1, 1, 1, 1),
+    (17, 4, 3, 8),
+])
+def test_launch_geometry(rows, sms, blocks, lanes):
+    """Rows and SMs → blocks and the chain warp's lanes: one block an SM
+    while the rows allow, a power of two of rows a block, every row in
+    one block; each block's helper warps are the source's constant."""
+    import re
+    got = knco.nco_geometry(rows, sms)
+    assert got == (blocks, lanes)
+    assert (blocks - 1) * lanes < rows <= blocks * lanes
+    assert lanes & (lanes - 1) == 0 and lanes <= knco.CHAIN_LANES
+    src = (build.CSRC_DIR / "nco_pll.cu").read_text()
+    assert re.search(r"constexpr int kNcoHelpers = (\d+);",
+                     src).group(1) == str(knco.HELPERS)
+    assert "dim3 block(rc::kNcoThreads * (1 + rc::kNcoHelpers));" in src
+
+
+def test_launch_geometry_refuses_no_rows():
+    for rows, sms in ((0, 132), (24, 0)):
+        with pytest.raises(ValueError):
+            knco.nco_geometry(rows, sms)
+
+
+def test_the_block_fits_the_card_at_every_geometry():
+    """The kernel's constants are the launcher's, and its shared memory,
+    as csrc/nco_pll.cu nco_smem_bytes computes it (the ring's (a, b) and
+    w a row, its raw tiles, the barriers and the rows' gains), fits an
+    H100's 227 KB a block at a full chain warp and grows with the rows."""
+    import re
+    src = (build.CSRC_DIR / "nco_pll.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kNco\w+) = ([\w ]+?);", src) if v.isdigit()}
+    assert const["kNcoThreads"] == knco.CHAIN_LANES
+    assert const["kNcoHelpers"] == knco.HELPERS
+    # The derived constants and the function's body, as C has them, in
+    # integer arithmetic: every operand is a whole number.
+    derived = dict(re.findall(r"constexpr int (kNco\w+) = ([^;]+);", src))
+    body = re.search(r"inline long long nco_smem_bytes\(int lanes\) \{"
+                     r"\s*return ([^;]+);", src).group(1)
+
+    def c_int(expr, env):
+        expr = re.sub(r"//[^\n]*", "", expr)
+        expr = re.sub(r"(\d+)LL\b", r"\1", expr).replace("/", "//")
+        return int(eval(f"({expr})", {}, env))
+
+    env = dict(const)
+    for name in ("kNcoSlot", "kNcoRingStride", "kNcoRawTiles",
+                 "kNcoRawStride"):
+        env[name] = c_int(derived[name], env)
+    smem = [c_int(body, dict(env, lanes=lanes)) for lanes in (1, 2, 32)]
+    assert smem[0] < smem[1] < smem[2] <= 232_448, smem
+    # Its 16 * lanes * ... term is the ring's (a, b) and w and the raw
+    # tiles, in float4s a row.
+    tile, ring = const["kNcoPhasorTile"], const["kNcoRing"]
+    per_row = 16 * (2 * (ring * tile // 2 + 1)
+                    + (const["kNcoAhead"] + 1) * tile // 4)
+    assert smem[2] - smem[0] >= 31 * per_row
+
+
+def test_the_c_entry_takes_both_counters_and_the_geometry():
+    """``rc_nco_pll``'s parameters as the source declares them are the
+    ctypes signature the launcher calls with: ``starved`` beside
+    ``redone``, then the block's ``lanes``."""
+    import re
+    src = (build.CSRC_DIR / "nco_pll.cu").read_text()
+    params = re.search(r'extern "C" int rc_nco_pll\(([^)]*)\)', src).group(1)
+    decls = [" ".join(p.split()) for p in params.split(",")]
+    names = [d.split()[-1].lstrip("*") for d in decls]
+    kinds = {"void*": build._P, "long long": build._L, "int": build._I,
+             "float": build._F}
+    types = [kinds[" ".join(d.replace("const ", "").split()[:-1])]
+             for d in decls]
+    assert types == build._SIGNATURES["rc_nco_pll"]
+    assert names[names.index("redone") + 1] == "starved"
+    assert names[names.index("n") + 1:names.index("n") + 3] == ["lanes",
+                                                                "ak"]
+
+
+def test_starved_is_a_counter_of_its_own(monkeypatch):
+    """``starved`` counts apart from ``redone``, one int64 a device; the
+    plain loop, which has no helpers, leaves it as it is while a wide
+    loop adds to ``redone``; its first use inside a graph capture is
+    refused by name."""
+    assert knco.starved is not knco.redone
+    t = knco.starved.tensor("cpu")
+    assert t.dtype == torch.int64 and t.shape == (1,)
+    assert t.data_ptr() != knco.redone.tensor("cpu").data_ptr()
+    assert knco.starved.tensor("cpu") is t
+    x = torch.from_numpy(_pilots(11, rows=2, n=3 * knco.PHASOR_TILE))
+    zeros = torch.zeros(2)
+    before = (knco.starved.read(), knco.redone.read())
+    knco.nco_pll_subcarrier_plain(x, _scale(x), *npl.pll_design(
+        FS, 19e3, 5000.0), zeros, zeros)
+    assert knco.starved.read() == before[0]
+    assert knco.redone.read() - before[1] == 2 * 3
+    knco.starved.tensor("cpu").add_(2)
+    assert knco.starved.read() == before[0] + 2
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="nco_pll.starved"):
+        knco.TileCounter("starved").tensor("cuda:0")

@@ -1,12 +1,15 @@
 """K-NCO on the card, at the ``wbfm24_pll`` plan (24 stations of 240 kS/s
-on a 10 MS/s band, the ``resident_pll`` mix's band): the kernel's
-subcarrier output against its plain loop on the pilots the step hands it,
-on and off a 16-byte boundary; the compiled step against its eager body
-with one launch a step and no tile redone; the redone-tile counter on a
-wide loop and over 20 s of the cell's traffic; the kernel's name in a
-profile; its phase output (``nco_pll_track``'s trajectory) against its
-plain loop and a float64 loop on the same pilots, and under a CUDA graph
-against eager with one launch a call.
+on a 10 MS/s band, the ``resident_pll`` mix's band): both outputs of the
+kernel (the subcarrier, and the phase, ``nco_pll_track``'s trajectory)
+against its plain loop on the pilots the step hands it, on and off a
+16-byte boundary with a ragged end, at a wide loop whose tiles are redone
+(as many as the plain loop redoes), with more rows than four an SM (so
+that a chain warp holds several rows) and with NaN rows, and at 64 ×
+262 144 from a carried state; the compiled step against its eager body
+with one launch a step and no tile redone or starved; the counters over
+20 s of the cell's traffic; the kernel's name in a profile; the phase
+output against a float64 loop, and under a CUDA graph against eager with
+one launch a call.
 
 Every test here needs a CUDA card and skips without one. This file
 imports no JAX, so that it runs where only the port is installed; from
@@ -94,43 +97,68 @@ def _scale(x):
                                             torch.finfo(torch.float32).tiny))
 
 
-def _against_plain(x, gains, phase, freq):
-    """The kernel and the plain loop on ``x``: the largest gaps of the
-    subcarrier, the phase (modulo 2π) and the frequency, and the tiles
-    each redid."""
+def _wrapped_gap(a, b):
+    return ((a.double() - b.double() + math.pi) % (2 * math.pi)
+            - math.pi).abs()
+
+
+def _against_plain(x, gains, phase, freq, output="subcarrier"):
+    """The kernel and the plain loop on ``x``, ``output`` of either: the
+    largest gaps of the output (modulo 2π for the phase), the final phase
+    (modulo 2π) and the frequency over the rows that are not NaN, whether
+    the NaN rows are NaN in both alike, and the tiles each redid."""
     from radiocore_tpu_torch.kernels import nco_pll as knco
-    s = _scale(x)
+    if output == "subcarrier":
+        s = _scale(x)
+    else:
+        s = torch.ones(x.shape[0], device=x.device)
     before = (knco.redone.read(x.device), knco.redone.read("cpu"))
-    got = knco.nco_pll_subcarrier_rows(x, s, *gains, phase, freq)
-    ref = knco.nco_pll_subcarrier_plain(x.cpu(), s.cpu(), *gains,
-                                        phase.cpu(), freq.cpu())
+    if output == "subcarrier":
+        got = knco.nco_pll_subcarrier_rows(x, s, *gains, phase, freq)
+    else:
+        got = knco.nco_pll_track_rows(x, *gains, phase, freq)
+    ref = knco.nco_pll_phasor_plain(x.cpu(), s.cpu(), *gains, phase.cpu(),
+                                    freq.cpu(), output)
     redid = (knco.redone.read(x.device) - before[0],
              knco.redone.read("cpu") - before[1])
-    d = (got[1].cpu().double() - ref[1].double() + math.pi) % (
-        2 * math.pi) - math.pi
-    return (float((got[0].cpu() - ref[0]).abs().max()), float(d.abs().max()),
-            float((got[2].cpu() - ref[2]).abs().max()), redid)
+    got = [v.cpu() for v in got]
+    live = ~x.cpu().isnan().any(-1)
+    dead = [bool(v[0][~live, 1:].isnan().all()) and bool(v[1][~live].isnan()
+                                                         .all())
+            for v in (got, ref)]
+    if output == "subcarrier":
+        out = float((got[0][live] - ref[0][live]).abs().max())
+    else:
+        out = float(_wrapped_gap(got[0][live], ref[0][live]).max())
+    return (out, float(_wrapped_gap(got[1][live], ref[1][live]).max()),
+            float((got[2][live] - ref[2][live]).abs().max()),
+            redid, all(dead))
+
+
+def _holds(gaps, output):
+    bound = SUB if output == "subcarrier" else PLAIN_RAD
+    return (gaps[0] <= bound and gaps[1] <= PLAIN_RAD and gaps[2] <= 1e-7
+            and gaps[4])
 
 
 def test_kernel_matches_its_plain_loop_on_the_cell_pilots(handed):
     pilot, gains, state = handed
     assert tuple(pilot.shape) == (24, 240_000)
-    sub, phase, freq, redid = _against_plain(pilot, gains, state.phase,
-                                             state.freq)
-    assert sub <= SUB and phase <= PLAIN_RAD and freq <= 1e-7, (sub, phase,
-                                                                freq)
-    assert redid == (0, 0)
+    gaps = _against_plain(pilot, gains, state.phase, state.freq)
+    assert _holds(gaps, "subcarrier"), gaps
+    assert gaps[3] == (0, 0)
 
 
-def test_kernel_off_a_16_byte_boundary_at_an_odd_length(handed):
+@pytest.mark.parametrize("output", ["subcarrier", "phase"])
+def test_kernel_off_a_16_byte_boundary_at_an_odd_length(handed, output):
+    """Rows off a 16-byte boundary (4-byte copies and stores) with a
+    ragged end (48 001 = 600 tiles and one sample)."""
     pilot, gains, state = handed
     x = pilot[:, 1:1 + 48_001]
     assert x.data_ptr() % 16 != 0 and x.shape[-1] % 2 == 1
-    sub, phase, freq, redid = _against_plain(x, gains, state.phase,
-                                             state.freq)
-    assert sub <= SUB and phase <= PLAIN_RAD and freq <= 1e-7, (sub, phase,
-                                                                freq)
-    assert redid == (0, 0)
+    gaps = _against_plain(x, gains, state.phase, state.freq, output)
+    assert _holds(gaps, output), gaps
+    assert gaps[3] == (0, 0)
 
 
 def test_a_wide_loop_redoes_tiles_on_the_card_as_in_the_plain_loop(handed):
@@ -142,11 +170,15 @@ def test_a_wide_loop_redoes_tiles_on_the_card_as_in_the_plain_loop(handed):
     pilot, _, state = handed
     x = pilot[:4, :48_000].contiguous()
     wide = pll_design(240_000, 19e3, 5000.0)
-    sub, phase, freq, redid = _against_plain(x, wide, state.phase[:4],
-                                             state.freq[:4])
-    assert sub <= SUB and phase <= PLAIN_RAD and freq <= 1e-7, (sub, phase,
-                                                                freq)
-    assert redid[0] == redid[1] == 4 * (48_000 // knco.PHASOR_TILE)
+    for output in ("subcarrier", "phase"):
+        # The phase output reads its pilot with a scale of 1: give it the
+        # normalised pilot, which the subcarrier output normalises itself.
+        xo = x if output == "subcarrier" else x * _scale(x)[:, None]
+        gaps = _against_plain(xo, wide, state.phase[:4], state.freq[:4],
+                              output)
+        assert _holds(gaps, output), (output, gaps)
+        redid = gaps[3]
+        assert redid[0] == redid[1] == 4 * (48_000 // knco.PHASOR_TILE)
 
 
 def test_graph_equals_eager_with_one_launch_and_no_tile_redone(plan):
@@ -156,6 +188,7 @@ def test_graph_equals_eager_with_one_launch_and_no_tile_redone(plan):
     graphed, eager = state, state
     launches = knco.launches.count
     redone = knco.redone.read(card)
+    starved = knco.starved.read(card)
     for k in range(CHUNKS):
         a_g, graphed = step(pool[k], graphed)
         a_e, eager = step.eager(pool[k], eager)
@@ -170,6 +203,7 @@ def test_graph_equals_eager_with_one_launch_and_no_tile_redone(plan):
     # or eager, counts one launch.
     assert knco.launches.count - launches == 2 * CHUNKS
     assert knco.redone.read(card) == redone
+    assert knco.starved.read(card) == starved
 
 
 def test_no_tile_redone_over_20_s_of_the_cell(plan):
@@ -177,7 +211,8 @@ def test_no_tile_redone_over_20_s_of_the_cell(plan):
     config, pool, card = plan
     step, state = _step(config, card)
     _, state = step(pool[0], state)
-    before = (knco.redone.read(card), knco.launches.count)
+    before = (knco.redone.read(card), knco.launches.count,
+              knco.starved.read(card))
     steps, t0 = 0, time.perf_counter()
     while time.perf_counter() - t0 < SOAK_S:
         _, state = step(pool[(steps + 1) % pool.shape[0]], state)
@@ -185,6 +220,8 @@ def test_no_tile_redone_over_20_s_of_the_cell(plan):
     torch.cuda.synchronize()
     assert knco.launches.count - before[1] == steps > 1000
     assert knco.redone.read(card) == before[0]
+    # The helpers kept ahead of every chain lane: the chain set the pace.
+    assert knco.starved.read(card) == before[2]
 
 
 def test_the_profiler_names_the_kernel(handed):
@@ -271,3 +308,83 @@ def test_phase_output_graph_equals_eager_with_one_launch_a_call(handed):
         assert torch.equal(got[0], want[0])
         assert torch.equal(got[1].phase, want[1].phase)
         assert torch.equal(got[1].freq, want[1].freq)
+
+
+def _synthetic(card, rows, n, seed, rate):
+    """Raw pilots as the cell's bandpass gives them, on the card: 19 kHz
+    within ±3 Hz at ``rate`` samples a second, each at its own phase,
+    amplitude 0.1, noise at a tenth of it; float32 ``(rows, n)``."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=card)
+    t = torch.arange(n, **f64) / rate
+    f = 19e3 + 6.0 * (torch.rand(rows, 1, generator=gen, **f64) - 0.5)
+    phi = 2 * math.pi * torch.rand(rows, 1, generator=gen, **f64)
+    x = (0.1 * math.sqrt(2.0) * torch.sin(2 * math.pi * f * t + phi)
+         + 0.01 * torch.randn(rows, n, generator=gen, **f64))
+    return x.float()
+
+
+@pytest.mark.parametrize("output", ["subcarrier", "phase"])
+def test_kernel_at_64_by_262144_from_a_carried_state(plan, output):
+    """The 64-station plan's shape: a first chunk from phase 0 through the
+    kernel, then the next chunk from the state it carried, kernel against
+    plain loop; no tile redone."""
+    from radiocore_tpu_torch.kernels import nco_pll as knco
+    from radiocore_tpu_torch.ops.nco_pll import pll_design
+    _, _, card = plan
+    rows, n = 64, 262_144
+    # One second of 262 144 S/s, the loop designed for that rate.
+    x = _synthetic(card, rows, 2 * n, SEED + 64, n).reshape(rows, 2, n)
+    gains = pll_design(n, 19e3, 50.0)
+    zeros = torch.zeros(rows, device=card)
+    first = x[:, 0].contiguous()
+    _, phase, freq = knco.nco_pll_subcarrier_rows(first, _scale(first),
+                                                  *gains, zeros, zeros)
+    gaps = _against_plain(x[:, 1].contiguous(), gains, phase, freq, output)
+    assert _holds(gaps, output), gaps
+    assert gaps[3] == (0, 0)
+
+
+@pytest.mark.parametrize("output", ["subcarrier", "phase"])
+def test_several_rows_a_chain_warp(handed, output):
+    """More rows than four an SM: the launcher puts several rows on each
+    chain warp, and every row is still its plain loop's."""
+    from radiocore_tpu_torch.kernels import nco_pll as knco
+    pilot, gains, state = handed
+    sms = torch.cuda.get_device_properties(pilot.device).multi_processor_count
+    rows = 4 * sms + 8
+    _, lanes = knco.nco_geometry(rows, sms)
+    assert lanes > 1
+    pick = torch.arange(rows, device=pilot.device) % pilot.shape[0]
+    x = pilot[pick, :4_003].contiguous()
+    spread = torch.linspace(-3.0, 3.0, rows, device=pilot.device)
+    gaps = _against_plain(x, gains, state.phase[pick] + spread,
+                          state.freq[pick], output)
+    assert _holds(gaps, output), gaps
+    assert gaps[3] == (0, 0)
+
+
+@pytest.mark.parametrize("output", ["subcarrier", "phase"])
+def test_nan_rows(handed, output):
+    """NaN pilot rows: NaN in kernel and plain loop alike, state and all,
+    and every other row what it is without them, bit for bit; NaN takes
+    no guard."""
+    from radiocore_tpu_torch.kernels import nco_pll as knco
+    pilot, gains, state = handed
+    x = pilot[:, :8_000].clone()
+    x[[3, 17]] = float("nan")
+    gaps = _against_plain(x, gains, state.phase, state.freq, output)
+    assert _holds(gaps, output), gaps
+    assert gaps[3] == (0, 0)
+    clean = pilot[:, :8_000].contiguous()
+    if output == "subcarrier":
+        a = knco.nco_pll_subcarrier_rows(x, _scale(x), *gains, state.phase,
+                                         state.freq)
+        b = knco.nco_pll_subcarrier_rows(clean, _scale(clean), *gains,
+                                         state.phase, state.freq)
+    else:
+        a = knco.nco_pll_track_rows(x, *gains, state.phase, state.freq)
+        b = knco.nco_pll_track_rows(clean, *gains, state.phase, state.freq)
+    keep = [r for r in range(x.shape[0]) if r not in (3, 17)]
+    for u, v in zip(a, b):
+        assert torch.equal(u[keep], v[keep])

@@ -265,18 +265,22 @@ def test_chain_probe_needs_the_card():
 
 
 def test_sweep_variants_rewrite_the_constants():
-    """``tools/nco_sweep`` rewrites the tile of ``csrc/nco_pll.cu`` and
-    nothing else; its first tile is the source as shipped, and a source
-    without the constant raises."""
+    """``tools/nco_sweep`` rewrites the tile and the ring's depth of
+    ``csrc/nco_pll.cu`` and nothing else; its first pair is the source as
+    shipped, and a source without either constant raises."""
     from radiocore_tpu_torch.kernels import build
     from radiocore_tpu_torch.tools import nco_sweep
     src = (build.CSRC_DIR / "nco_pll.cu").read_text()
-    assert nco_sweep.variant_source(src, nco_sweep.PHASOR_TILES[0]) == src
+    assert nco_sweep.variant_source(src, *nco_sweep.VARIANTS[0]) == src
     assert f"kNcoPhasorTile = {knco.PHASOR_TILE};" in src
-    out = nco_sweep.variant_source(src, 16)
+    out = nco_sweep.variant_source(src, 16, 7)
     changed = [(a, b) for a, b in zip(src.splitlines(), out.splitlines())
                if a != b]
     assert len(out.splitlines()) == len(src.splitlines())
-    assert len(changed) == 1 and "kNcoPhasorTile = 16;" in changed[0][1]
-    with pytest.raises(RuntimeError, match="kNcoPhasorTile"):
-        nco_sweep.variant_source(src.replace("kNcoPhasorTile", "kTile"), 16)
+    assert len(changed) == 2
+    assert "kNcoPhasorTile = 16;" in changed[0][1]
+    assert "kNcoRing = 7;" in changed[1][1]
+    assert len(set(nco_sweep.VARIANTS)) == len(nco_sweep.VARIANTS)
+    for name in ("kNcoPhasorTile", "kNcoRing"):
+        with pytest.raises(RuntimeError, match=name):
+            nco_sweep.variant_source(src.replace(name, "kTile"), 16, 7)
