@@ -165,6 +165,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     steps and the host's enqueue of one, graph and eager; the inputs'
     copy-in and the outputs' clone-out; ``max_memory_reserved``.
 
+20. (run after 4) builds the mixed24 cell's step
+    (``make_multi_station_step(kinds=...)``: 24 x 240 000 on the 10 MS/s
+    band of ``portbench/signals.band_pool``, WBFM, MFM and FM in
+    rotation, WBFM ``exact``) on the card (``[mixed]``): ``step.rows``;
+    one replayed step's launches (K-GATHER 1, K-EXTRACT 0, K-FIR 4, each
+    kind's ``pipeline.demodulated`` counter its 8 rows), three replays'
+    and one graph; the step and stage times; K-GATHER on the permuted
+    plan (rows WBFM, MFM, FM) against its plain version in complex128,
+    and the step's extraction against the station-order one with its
+    rows permuted; K-FIR at the MFM group's 8 x 48 000 against float64;
+    two chained chunks, audio and carried histories, against the same
+    step on the CPU (1e-4).
+
 Every phase above drives the entry points a user calls, so on the card
 their steps are the compiled ones: the step times, launches and
 ``[… ] profile`` lines are those of graph replays (``torch.profiler``
@@ -832,6 +845,166 @@ def check_gather(device, gen) -> tuple:
     return (dict(max_abs_err=max_err, ms=ms, plain_ms=plain, **least,
                  library_ms=None, reorder_ms=reorder_ms, stage_ms=stage),
             int(per_step["fast"][0]))
+
+
+
+# The mixed24 cell (portbench/configs/mixed24.json): the wbfm24 plan with
+# WBFM, MFM and FM stations in rotation, the server's own mix, on the band
+# of the resident traffic (portbench/signals.band_pool).
+MIXED_SEED = (1 << 31) + 2525
+MIXED_STEPS = 3
+# K-FIR launches a mixed step: the exact WBFM group's three (as the exact
+# step's, phase 10) and the MFM group's de-emphasis.
+MIXED_FIR = 4
+
+
+def check_mixed(device, gen) -> None:
+    """The mixed24 cell's step, ``make_multi_station_step(kinds=...)`` at
+    24 x 240 000 on the resident band, on the card: ``step.rows``; the
+    launches of one replayed step (K-GATHER 1, K-EXTRACT 0, K-FIR
+    ``MIXED_FIR``, each kind's ``pipeline.demodulated`` its rows), the
+    same times ``MIXED_STEPS`` over as many replays, and one graph;
+    K-GATHER on the permuted plan (rows WBFM, MFM, FM) against its plain
+    version in complex128, and the step's extraction against the
+    station-order extraction with its rows permuted; K-FIR at the MFM
+    group's shape against float64; two chained chunks, audio and every
+    carried history, against the same step on the CPU."""
+    import json
+    import torch
+    from portbench import signals
+    from radiocore_tpu_torch.kernels import extract, fir
+    from radiocore_tpu_torch.ops.channelize import (extraction_plan,
+                                                    make_extractor)
+    from radiocore_tpu_torch.ops.design import deemphasis_taps
+    from radiocore_tpu_torch.parallel import pipeline
+
+    with open(REPO / "portbench/configs/mixed24.json") as f:
+        config = json.load(f)
+    with open(REPO / "portbench/traffic/resident_mixed.json") as f:
+        traffic = json.load(f)
+    n, m, ac = (int(config[k])
+                for k in ("band_rate", "station_rate", "audio_rate"))
+    offs, kinds = signals.offsets(config), config["kinds"]
+    if (n, m, ac, tuple(offs)) != (W24_BAND, W24_STATION, W24_AUDIO,
+                                   W24_OFFSETS):
+        raise AssertionError("mixed24 is not the wbfm24 plan")
+    pool = signals.band_pool(MIXED_SEED, config, traffic, device)
+
+    def build(where):
+        return pipeline.make_multi_station_step(
+            n, offs, m, ac, config["deemphasis_s"], mode=config["mode"],
+            kinds=kinds, device=where)
+
+    step, state0 = build(device)
+    want_rows = {kind: tuple(i for i, k in enumerate(kinds) if k == kind)
+                 for kind in pipeline.KINDS}
+    if step.rows != want_rows:
+        raise AssertionError(f"mixed step rows {step.rows}")
+    perm = [i for r in step.rows.values() for i in r]
+
+    counters = {"K-GATHER": extract.gather_launches,
+                "K-EXTRACT": extract.launches, "K-FIR": fir.launches,
+                **{f"demodulated[{kind}]": pipeline.demodulated[kind]
+                   for kind in step.rows}}
+    want = {"K-GATHER": 1, "K-EXTRACT": 0, "K-FIR": MIXED_FIR,
+            **{f"demodulated[{kind}]": len(r)
+               for kind, r in step.rows.items()}}
+    chained = [step(pool[0], state0)]        # the capture
+    torch.cuda.synchronize()
+    for ctr in counters.values():
+        ctr.reset()
+    chained.append(step(pool[1], chained[0][1]))
+    torch.cuda.synchronize()
+    one = {name: ctr.count for name, ctr in counters.items()}
+    state = chained[1][1]
+    for ctr in counters.values():
+        ctr.reset()
+    for k in range(MIXED_STEPS):
+        _, state = step(pool[2 + k % 2], state)
+    torch.cuda.synchronize()
+    many = {name: ctr.count for name, ctr in counters.items()}
+    print(f"[mixed] {len(kinds)} x {m} -> {ac}, kinds {kinds[:3]} in "
+          f"rotation, rows {dict((k, len(r)) for k, r in step.rows.items())}"
+          f": launches of one replayed step {one}; over {MIXED_STEPS} "
+          f"replays {many}; graphs {step.graph_count}")
+    if one != want:
+        raise AssertionError(f"mixed step launches {one}, want {want}")
+    if many != {name: MIXED_STEPS * v for name, v in want.items()}:
+        raise AssertionError(f"mixed step launches over {MIXED_STEPS} "
+                             f"replays {many}")
+    if step.graph_count != 1:
+        raise AssertionError(f"mixed step graphs {step.graph_count}")
+    print(f"[mixed] {step_ms(step, pool[0], state)}; stages (median of 20) "
+          + ", ".join(f"{k} {v:.3f} ms"
+                      for k, v in stage_ms(step, pool[0], state).items()))
+
+    # K-GATHER on the permuted plan, and the step's own extraction.
+    spec = step.stages["band_fft"](pool[0])
+    shifts = tuple(-offs[i] for i in perm)
+    auto = make_extractor(n, shifts, m)
+    got = auto.gather(spec)
+    starts, w_out, w_fix, _, _ = extraction_plan(n, shifts, m)
+    args = (torch.tensor(starts, dtype=torch.int64, device=device),
+            torch.from_numpy(w_out.astype("float64") / n).to(device),
+            float(w_fix) / n)
+    ref = extract.extract_gather_plain(spec.to(torch.complex128), *args)
+    err = rel_l2(got, ref)
+    del ref
+    gather = [(name, ms) for name, ms in kernel_times_ms(
+        lambda: auto.gather(spec)) if "gather_kernel" in name]
+    plain = time_ms(lambda: extract.extract_gather_plain(
+        spec, args[0], args[1].float(), args[2]))
+    report(f"K-GATHER {len(shifts)}x{m} in {n}, rows WBFM, MFM, FM rel_l2",
+           err, REL_L2_MAX, sum(ms for _, ms in gather), plain,
+           bound(16 * len(shifts) * m, 0.0))
+    extract.gather_launches.reset()
+    mixed_iq = step.stages["extract"](spec)
+    torch.cuda.synchronize()
+    launched = extract.gather_launches.count
+    station_iq = make_extractor(n, tuple(-o for o in offs), m)(spec)[perm]
+    iq_err = rel_l2(mixed_iq, station_iq)
+    print(f"[mixed] the step's extraction against the station-order one, "
+          f"rows permuted: rel_l2 {iq_err:.3e} (bound {REL_L2_MAX:.0e}), "
+          f"bit for bit {bool(torch.equal(mixed_iq, station_iq))}; K-GATHER "
+          f"launches {launched}")
+    if not iq_err <= REL_L2_MAX or launched != 1:
+        raise AssertionError(f"mixed extraction: rel_l2 {iq_err}, K-GATHER "
+                             f"launches {launched}")
+    del spec, got, mixed_iq, station_iq
+
+    # K-FIR at the MFM group's shape: its rows, the audio chunk, 51 taps.
+    taps = deemphasis_taps(ac, config["deemphasis_s"])
+    x, hist = fir_case(device, gen, len(step.rows["mfm"]), ac, taps)
+    got = fir.fir_causal_rows(x, taps, hist)
+    ref = fir.fir_causal_plain(x.double(), taps, hist.double())
+    report(f"K-FIR {len(taps)} taps {x.shape[0]}x{ac} (the MFM group) "
+           f"max_abs", max_abs(got, ref), FIR_ABS_MAX,
+           fir_device_ms(lambda: fir.fir_causal_rows(x, taps, hist)),
+           time_ms(lambda: fir.fir_causal_plain(x, taps, hist)),
+           bound(4 * (x.numel() + hist.numel() + got.numel()),
+                 2.0 * len(taps) * x.numel()))
+    del x, hist, got, ref
+
+    # Two chained chunks against the same step on the CPU.
+    step_cpu, state_cpu = build("cpu")
+    gaps = []
+    for k, (audio, state) in enumerate(chained):
+        audio_cpu, state_cpu = step_cpu(pool[k].cpu(), state_cpu)
+        for kind, a in audio.items():
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"mixed: non-finite {kind} audio")
+        leaves = [(f"audio {kind}", audio[kind], audio_cpu[kind])
+                  for kind in audio_cpu]
+        leaves += [(f"{kind} {key}", state[kind][key], v)
+                   for kind, sub in state_cpu.items()
+                   for key, v in sub.items()]
+        gaps.append({what: max_abs(a.cpu(), b) for what, a, b in leaves})
+    worst = max(max(g.values()) for g in gaps)
+    print(f"[mixed] chunks 1-2 chained, card vs CPU max_abs: " + "; ".join(
+        f"chunk {k + 1} " + ", ".join(f"{w} {v:.2e}" for w, v in g.items())
+        for k, g in enumerate(gaps)) + f" (bound {E2E_ABS_MAX:.0e})")
+    if not worst <= E2E_ABS_MAX:
+        raise AssertionError(f"mixed: card and CPU differ by {worst}")
 
 
 def _graphed(fn):
@@ -3237,6 +3410,11 @@ def main(argv=()) -> int:
         kstats["K-GATHER"], launches["K-GATHER"] = check_gather(device, gen)
         lap("K-GATHER at the wbfm24 plan")
 
+    def phase_mixed():
+        # Phase 20: the mixed24 cell's step, WBFM, MFM and FM.
+        check_mixed(device, gen)
+        lap("[mixed] the mixed24 step")
+
     def phase_band():
         # Phase 5: the 96-station kernels against their plain versions.
         kstats.update(check_band_kernels(device, gen))
@@ -3349,8 +3527,8 @@ def main(argv=()) -> int:
         check_synth(device)
         lap("[native] and [synth]")
 
-    for run_phase in (phase_main, phase_gather, phase_band, phase_dead, phase_paths96,
-                      phase_nco, phase_firpilot, phase_exact, phase_ncopath,
+    for run_phase in (phase_main, phase_gather, phase_mixed, phase_band,
+                      phase_dead, phase_paths96, phase_nco, phase_firpilot, phase_exact, phase_ncopath,
                       phase_classes, phase_deadstep, phase_routes,
                       phase_graphs, phase_apps, phase_acceptance,
                       phase_config5, phase_parallel):

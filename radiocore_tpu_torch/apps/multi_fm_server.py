@@ -18,7 +18,10 @@ Run headless (no SDR, ZMQ optional; ``--device cpu`` without a card):
 ``main`` reads the JAX package's routing variables once
 (``Routes.from_environ``), prints them and hands them to the loop; with
 ``--fused`` it also takes ``RADIOCORE_TPU_EXTRACT_DEMOD`` (``off``,
-``fused`` or ``spec``) as the fused step's ``extract_demod``.
+``fused`` or ``spec``) as the fused step's ``extract_demod``. The fused
+extract+demod kernels decode WBFM only, so ``fused`` and ``spec`` serve
+``--stations 1`` (station 0 is WBFM); with more stations, whose modes
+rotate WBFM, MFM, FM, ``main`` refuses them before it builds anything.
 """
 
 from __future__ import annotations
@@ -117,18 +120,25 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
                 device: Optional[torch.device | str] = None,
                 routes: Optional[Routes] = None,
                 extract_demod: str = "off", pll: str = "analytic") -> None:
-    """All-WBFM serving through the fused multi-station step on
-    ``device`` (the first CUDA device when None): band FFT → all-station
-    extraction → batched WBFM (``parallel/pipeline.py``). Requires
-    homogeneous WBFM stations.
+    """Serving through the fused multi-station step on ``device`` (the
+    first CUDA device when None): band FFT → all-station extraction →
+    each station's demodulator, batched by kind (``parallel/pipeline.py``,
+    ``kinds`` from each spec's ``mode``). Every spec must have the same
+    ``bandwidth`` (the step's one station chunk); a ``ValueError`` says
+    otherwise. Each station is published under its topic with its kind's
+    channels: WBFM ``(audio, 2)``, MFM and FM ``(audio,)`` (the bytes of
+    the upstream's ``(N, 1)``); a sink gets ``(audio, 2)`` or
+    ``(audio, 1)``, as from the Tuner path's classes.
 
     Stages: ``source`` (the host read), ``fused_step`` (the step's
     launches, the host's enqueue), ``fetch`` (waits on the audio, so the
     step's device time, and copies it to the host) and ``publish``. The
     pipe's host memcpy of each chunk into its page-locked slot, and the
     launch of its copy, fall between the stages. ``routes``,
-    ``extract_demod`` and ``pll`` (``"nco"``, the feedback pilot loop,
-    with ``mode="exact"``) go to ``make_multi_station_step``.
+    ``extract_demod`` (``"off"`` unless every station is WBFM) and
+    ``pll`` (``"nco"``, the feedback pilot loop, with ``mode="exact"``)
+    go to ``make_multi_station_step``; ``mode`` and ``pll`` are the WBFM
+    stations'.
     """
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
 
@@ -139,11 +149,21 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
     center = (min(s.frequency for s in specs) +
               max(s.frequency for s in specs)) / 2
     offsets = [int(s.frequency - center) for s in specs]
-    bw = int(specs[0].bandwidth)
+    widths = sorted({int(s.bandwidth) for s in specs})
+    if len(widths) != 1:
+        raise ValueError(f"serve_fused takes one station bandwidth for "
+                         f"every spec (the step's station chunk); got "
+                         f"{widths}")
     step, state = make_multi_station_step(
-        n_band, offsets, bw, int(audio_rate), mode=mode,
-        extract_demod=extract_demod, pll=pll, device=device, routes=routes)
+        n_band, offsets, widths[0], int(audio_rate), mode=mode,
+        extract_demod=extract_demod, pll=pll,
+        kinds=[s.mode for s in specs], device=device, routes=routes)
     topics = [int(s.frequency).to_bytes(4, "little") for s in specs]
+    # Station i's row: (kind, row in its kind's audio). All WBFM: one
+    # tensor in station order.
+    rows = getattr(step, "rows", {"wbfm": range(len(specs))})
+    where = {i: (kind, j) for kind, idx in rows.items()
+             for j, i in enumerate(idx)}
 
     pipe = IngestPipe(depth=2, device=device)  # chunk N+1's copy overlaps N
 
@@ -158,15 +178,20 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
         with timer.stage("fused_step"):
             audio_all, state = step(band, state)
         with timer.stage("fetch", sync_value=audio_all):
-            audio_np = to_host(audio_all)
+            if not isinstance(audio_all, dict):
+                audio_all = {"wbfm": audio_all}
+            audio_np = {kind: to_host(a) for kind, a in audio_all.items()}
         with timer.stage("publish"):
             for i, topic in enumerate(topics):
+                kind, j = where[i]
+                audio = audio_np[kind][j]
                 if publisher is not None:
                     publisher.send_multipart(
                         [topic, np.ascontiguousarray(
-                            audio_np[i], np.float32).tobytes()])
+                            audio, np.float32).tobytes()])
                 if sinks:
-                    sinks[i].write(audio_np[i])
+                    sinks[i].write(audio if audio.ndim == 2
+                                   else audio[:, None])
         metrics.incr("chunks")
         metrics.gauge("chunk_seconds", time.monotonic() - t0)
 
@@ -184,8 +209,9 @@ def main(argv=None) -> None:
     parser.add_argument("--bind", default="tcp://*:5555")
     parser.add_argument("--no-zmq", action="store_true")
     parser.add_argument("--fused", action="store_true",
-                        help="all-WBFM fused multi-station step "
-                             "(batched channelize+demod)")
+                        help="fused multi-station step (one "
+                             "channelization, each kind's demodulator "
+                             "batched)")
     parser.add_argument("--pll", choices=("analytic", "nco"),
                         default="analytic",
                         help="the fused step's pilot tracker: 'nco' runs "
@@ -203,10 +229,17 @@ def main(argv=None) -> None:
     print(f"routes: {routes}" + (f", extract_demod={extract_demod}"
                                  if args.fused else ""))
     base = 96.9e6
-    modes = ["wbfm"] * 3 if args.fused else ["wbfm", "mfm", "fm"]
+    modes = ["wbfm", "mfm", "fm"]
     specs = [StationSpec(base + i * 400e3,
                          modes[i % 3], args.bandwidth)
              for i in range(args.stations)]
+    if (args.fused and extract_demod != "off"
+            and any(s.mode != "wbfm" for s in specs)):
+        parser.error(f"RADIOCORE_TPU_EXTRACT_DEMOD={extract_demod} "
+                     f"decodes WBFM only, and --stations "
+                     f"{args.stations} serves WBFM, MFM and FM in "
+                     f"rotation: use --stations 1, or leave the variable "
+                     f"unset ('off')")
     tuner = build_tuner(specs, args.audio_rate, args.band_rate,
                         device=device, routes=routes)
 

@@ -15,6 +15,15 @@ station rfft and the fused extract+demod paths of
     composite spectra ──fast_spec tail (K-FIR de-emphasis)──► audio
         (C, audio_chunk, 2)
 
+A mix of demodulators (``kinds``: WBFM, MFM and FM stations, as the
+upstream server serves them) extracts every station in one launch, its
+rows grouped by kind, and runs each kind's batched step over its group:
+
+    spectrum ──K-GATHER (rows WBFM, MFM, FM)──► (C, m) station IQ
+             ──WBFM step──► (C_w, audio_chunk, 2)
+             ──MFM step──► (C_m, audio_chunk)
+             ──FM step──► (C_f, audio_chunk)
+
 On a CUDA device every kernel stage runs the hand-written kernel; on
 the CPU the same code runs their plain PyTorch versions. ``routes``
 (:class:`~radiocore_tpu_torch.runtime.routes.Routes`) can send the band
@@ -43,6 +52,9 @@ from radiocore_tpu_torch.kernels import fft_rows
 from radiocore_tpu_torch.kernels.extract_demod import (
     extract_demod_ok, extract_demod_rows, extract_demod_spec_ok,
     extract_demod_spec_rows)
+from radiocore_tpu_torch.kernels.fft_rows import LaunchCounter
+from radiocore_tpu_torch.models.fm import make_fm_step
+from radiocore_tpu_torch.models.mfm import make_mfm_step, mfm_init_state
 from radiocore_tpu_torch.models.wbfm import make_wbfm_step, wbfm_init_state
 from radiocore_tpu_torch.ops import fft as _fft
 from radiocore_tpu_torch.ops.channelize import (make_extractor,
@@ -59,6 +71,12 @@ from radiocore_tpu_torch.runtime.routes import Routes, resolve
 
 State = Dict[str, torch.Tensor]
 
+KINDS = ("wbfm", "mfm", "fm")   # a mixed step's groups, in row order
+# Stations demodulated by each group of a mixed step, advanced by the
+# group's rows a call; a compiled step adds a capture's count at every
+# replay, as it adds a kernel's launches (``runtime/graphs``).
+demodulated = {kind: LaunchCounter() for kind in KINDS}
+
 
 def make_multi_station_step(
         n_band: int,
@@ -70,6 +88,7 @@ def make_multi_station_step(
         extract_demod: str = "off",
         *,
         pll: str = "analytic",
+        kinds: Optional[Sequence[str]] = None,
         device: Optional[torch.device | str] = None,
         mesh: Optional[RadioMesh] = None,
         routes: Optional[Routes] = None,
@@ -105,6 +124,28 @@ def make_multi_station_step(
     needs ``mode="exact"`` and ``extract_demod="off"`` and takes no mesh;
     anything else raises ``ValueError`` (the WBFM step checks the mode
     and the name).
+
+    ``kinds`` gives each station's demodulator, in the order of
+    ``offsets_hz``: ``"wbfm"`` (stereo, the step's ``mode`` and ``pll``),
+    ``"mfm"`` (mono broadcast FM: de-emphasis, DC removal, clip) or
+    ``"fm"`` (quadrature demod and decimation). None, or every station
+    ``"wbfm"``, builds the all-WBFM step described here and below. A mix
+    builds the same three stages with one extraction whose rows come out
+    grouped by kind, WBFM then MFM then FM (the plan's shifts permuted;
+    K-GATHER writes any plan in its output order, so the grouping costs
+    no copy), and a ``demod_tail`` that runs each present kind's batched
+    step over its contiguous rows, inside a span ``tail_wbfm``,
+    ``tail_mfm`` or ``tail_fm`` (``demodulated[kind]`` counts its rows).
+    The audio is a dict by kind, ``wbfm`` ``(C_w, audio_chunk, 2)``,
+    ``mfm`` ``(C_m, audio_chunk)`` and ``fm`` ``(C_f, audio_chunk)``: a
+    mono station is computed mono, with no padded second channel, so the
+    kinds cannot share one tensor. The state is ``{"wbfm": <the WBFM
+    state>, "mfm": {"deemph": ...}}`` (FM carries none), each key only
+    where its kind is present; ``step.rows[kind]`` gives the station
+    indices of each group in ``offsets_hz`` order. A mix raises
+    ``ValueError`` with ``extract_demod`` other than ``"off"`` (the fused
+    kernels make a WBFM quad for every row) or with a mesh; so does a
+    ``kinds`` of the wrong length or with an unknown kind.
 
     ``step.stages`` holds the three stages that ``step`` chains, for
     per-stage timing: ``band_fft``, ``extract`` and ``demod_tail`` for
@@ -154,6 +195,15 @@ def make_multi_station_step(
     if pll == "nco" and mesh is not None:
         raise ValueError("pll='nco' with a mesh: the mesh step carries no "
                          "loop state")
+    rows = _kind_rows(kinds, len(offsets_hz))
+    if rows is not None:
+        if extract_demod != "off":
+            raise ValueError(f"kinds with extract_demod={extract_demod!r}: "
+                             f"the fused kernels make a WBFM quad for "
+                             f"every row")
+        if mesh is not None:
+            raise ValueError("kinds with a mesh: the mesh step demodulates "
+                             "WBFM only")
     if mesh is not None:
         if extract_demod != "off":
             raise ValueError(f"extract_demod={extract_demod!r} with a mesh: "
@@ -203,6 +253,13 @@ def make_multi_station_step(
         return _mesh_step(mesh, n_band, shifts, sc, audio_chunk, deemphasis,
                           demod_tail, routes)
 
+    state0 = None
+    if rows is not None:
+        # One extraction, its plan permuted so that the rows come out
+        # grouped by kind.
+        shifts = tuple(shifts[i] for r in rows.values() for i in r)
+        demod_tail, state0 = _mixed_tail(rows, demod_tail, sc, audio_chunk,
+                                         deemphasis, pll, device, routes)
     if extract_demod == "off":
         extract = make_extractor(n_band, shifts, sc, routes)
 
@@ -245,10 +302,76 @@ def make_multi_station_step(
             return last(x, state)
 
     step.stages = stages
-    state0 = wbfm_init_state(audio_chunk, deemphasis,
-                             batch_shape=(n_stations,), pll=pll,
-                             device=device)
-    return compile_step(step, device), state0
+    if state0 is None:
+        state0 = wbfm_init_state(audio_chunk, deemphasis,
+                                 batch_shape=(n_stations,), pll=pll,
+                                 device=device)
+    compiled = compile_step(step, device)
+    if rows is not None:
+        compiled.rows = rows
+    return compiled, state0
+
+
+def _kind_rows(kinds: Optional[Sequence[str]], n_stations: int
+               ) -> Optional[Dict[str, Tuple[int, ...]]]:
+    """Each present kind's station indices, in row order, for a mix; None
+    for no ``kinds`` or every station WBFM."""
+    if kinds is None:
+        return None
+    kinds = tuple(kinds)
+    if len(kinds) != n_stations:
+        raise ValueError(f"{len(kinds)} kinds for {n_stations} stations")
+    unknown = sorted(set(kinds) - set(KINDS))
+    if unknown:
+        raise ValueError(f"unknown kinds {unknown}; expected {KINDS}")
+    if set(kinds) == {"wbfm"}:
+        return None
+    rows = {kind: tuple(i for i, k in enumerate(kinds) if k == kind)
+            for kind in KINDS}
+    return {kind: r for kind, r in rows.items() if r}
+
+
+def _mixed_tail(rows: Dict[str, Tuple[int, ...]],
+                wbfm_tail: Callable[[torch.Tensor, State],
+                                    Tuple[torch.Tensor, State]],
+                sc: int, audio_chunk: int, deemphasis: float, pll: str,
+                device: torch.device, routes: Routes):
+    """The ``demod_tail`` stage and initial state of a mix of kinds
+    (:func:`make_multi_station_step`'s ``kinds``) over station IQ whose
+    rows are grouped as ``rows`` orders them; ``wbfm_tail`` is the WBFM
+    group's demod and tail, as the all-WBFM step runs them."""
+    tails, state0 = {}, {}
+    if "wbfm" in rows:
+        tails["wbfm"] = wbfm_tail
+        state0["wbfm"] = wbfm_init_state(
+            audio_chunk, deemphasis, batch_shape=(len(rows["wbfm"]),),
+            pll=pll, device=device)
+    if "mfm" in rows:
+        tails["mfm"] = make_mfm_step(sc, audio_chunk, deemphasis, routes)
+        state0["mfm"] = mfm_init_state(
+            audio_chunk, deemphasis, batch_shape=(len(rows["mfm"]),),
+            device=device)
+    if "fm" in rows:
+        fm = make_fm_step(sc, audio_chunk, routes)
+        tails["fm"] = lambda iq, state: (fm(iq), None)
+    groups, a = {}, 0
+    for kind, r in rows.items():
+        groups[kind] = (a, a + len(r))
+        a += len(r)
+
+    def demod_tail(st_iq: torch.Tensor, state: Dict[str, State]
+                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, State]]:
+        audio, new = {}, {}
+        for kind, (a, b) in groups.items():
+            with span("tail_" + kind):
+                audio[kind], group_state = tails[kind](st_iq[a:b],
+                                                       state.get(kind))
+            if group_state is not None:
+                new[kind] = group_state
+            demodulated[kind].count += b - a
+        return audio, new
+
+    return demod_tail, state0
 
 
 def station_rfft_route(station_chunk: int, is_cuda: bool,
