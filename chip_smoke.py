@@ -29,7 +29,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    torch reorder it replaces (device time after an L2 flush) beside its
    bound, times the extraction stage as a CUDA graph under ``auto`` and
    ``native``, and counts its launches a step of the ``off`` step in
-   ``fast`` and ``exact`` (one each, no K-EXTRACT);
+   ``fast`` and ``exact`` (one each, no K-EXTRACT); then K-QDEMOD, the
+   quadrature demod, at the wbfm24 cells' 24 x 240 000 and at a mix
+   group's 8 rows of it, on FM station IQ, against its plain version (the
+   torch chain): samples that differ, the largest gap, the device time of
+   both after an L2 flush and back to back, beside its bytes bound;
 5. runs K-MIXED (the 24M = 96 · 2^18 band FFT, with its column pass and
    its row passes also timed apart), K-EXTRACT on that band, K-XDEMOD and
    K-XDEMOD-SPEC against their plain versions at the 96-station shapes,
@@ -237,6 +241,10 @@ FIR_ABS_MAX = 1e-5    # K-FIR against float64
 XDEMOD_ABS_MAX = 5e-5   # K-XDEMOD against float64
 XSPEC_REL_MAX = 3e-5    # K-XDEMOD-SPEC, max abs / max |ref|
 ATAN_ABS_MAX = 2e-6   # the discriminator against float64 atan2, rad
+# K-QDEMOD against the torch chain: torch's complex product contracts into
+# FMAs apart from the kernel's in about a third of the samples, which moves
+# the angle by an ulp or two.
+QDEMOD_ABS_MAX = 2.4e-7
 E2E_ABS_MAX = 1e-4    # card against CPU, audio of chunk 1
 SNR_MIN_DB = 20.0     # per stereo tone, as the repository's verify drive
 # K-NCO against its plain loop (the same arithmetic in float32; the kernel
@@ -300,6 +308,9 @@ KERNELS = {
     # Replaces a lax.scan, not a TPU kernel.
     "K-NCO": ("radiocore_tpu_torch/csrc/nco_pll.cu",
               "radiocore_tpu/ops/nco_pll.py:53"),
+    # Replaces jnp ops, not a TPU kernel.
+    "K-QDEMOD": ("radiocore_tpu_torch/csrc/quad_demod.cu",
+                 "radiocore_tpu/ops/demod.py:16"),
 }
 
 
@@ -847,6 +858,59 @@ def check_gather(device, gen) -> tuple:
             int(per_step["fast"][0]))
 
 
+def check_quad_demod(device, gen) -> dict:
+    """K-QDEMOD at the wbfm24 cells' shape, 24 x 240 000, and at a mix
+    group's 8 rows of it (rows 8:16, from a row offset): against its plain
+    version (the torch chain it replaces on the card), the samples that
+    differ and the largest gap; the device time of both after an L2 flush
+    (the bound's case) and back to back (the IQ partly in the L2, as the
+    extraction leaves it in a step), beside the bytes bound."""
+    import torch
+    from radiocore_tpu_torch.kernels import quad_demod as kq
+    c, m = len(W24_OFFSETS), W24_STATION
+    iq = fm_stations(gen, c, m, device).to(torch.complex64)
+    iq += 0.01 * crandn(gen, device, c, m)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    flushing = {name for name, _ in kernel_times_ms(flush.zero_)}
+
+    def device_ms(fn, flushed):
+        times = kernel_times_ms((lambda: (flush.zero_(), fn())) if flushed
+                                else fn)
+        return sum(ms for name, ms in times if name not in flushing)
+
+    stats = {}
+    for what, rows in (("", slice(0, c)), ("_8rows", slice(8, 16))):
+        x = iq[rows]
+        shape = f"{x.shape[0]}x{m}"
+        got, want = kq.quad_demod_rows(x), kq.quad_demod_plain(x)
+        differ = int((got != want).sum())
+        err = max_abs(got, want)
+        kernel = [name for name, _ in kernel_times_ms(
+            lambda: kq.quad_demod_rows(x))]
+        if len(kernel) != 1 or "quad_demod_kernel" not in kernel[0]:
+            raise AssertionError(f"K-QDEMOD: kernels {kernel}")
+        chain = kernel_times_ms(lambda: kq.quad_demod_plain(x))
+        ms = device_ms(lambda: kq.quad_demod_rows(x), True)
+        plain = device_ms(lambda: kq.quad_demod_plain(x), True)
+        warm = device_ms(lambda: kq.quad_demod_rows(x), False)
+        plain_warm = device_ms(lambda: kq.quad_demod_plain(x), False)
+        least = bound(12 * x.numel(), 0.0)
+        report(f"K-QDEMOD {shape} max_abs against the torch chain "
+               f"({differ} of {x.numel()} samples differ)", err,
+               QDEMOD_ABS_MAX, ms, plain, least)
+        print(f"[kernel] K-QDEMOD {shape} device time after an L2 flush: "
+              f"kernel {ms:.4f} ms, torch chain {plain:.4f} ms "
+              f"({len(chain)} kernels); back to back: kernel {warm:.4f} ms, chain "
+              f"{plain_warm:.4f} ms; {kernel[0]}")
+        stats.update({f"ms{what}": ms, f"plain_ms{what}": plain,
+                      f"warm_ms{what}": warm, f"plain_warm_ms{what}":
+                      plain_warm, f"max_abs_err{what}": err,
+                      f"differing{what}": differ})
+        if not what:
+            stats.update(least)
+    stats["library_ms"] = None
+    return stats
+
 
 # The mixed24 cell (portbench/configs/mixed24.json): the wbfm24 plan with
 # WBFM, MFM and FM stations in rotation, the server's own mix, on the band
@@ -862,7 +926,8 @@ def check_mixed(device, gen) -> None:
     """The mixed24 cell's step, ``make_multi_station_step(kinds=...)`` at
     24 x 240 000 on the resident band, on the card: ``step.rows``; the
     launches of one replayed step (K-GATHER 1, K-EXTRACT 0, K-FIR
-    ``MIXED_FIR``, each kind's ``pipeline.demodulated`` its rows), the
+    ``MIXED_FIR``, K-QDEMOD one a group, each kind's
+    ``pipeline.demodulated`` its rows), the
     same times ``MIXED_STEPS`` over as many replays, and one graph;
     K-GATHER on the permuted plan (rows WBFM, MFM, FM) against its plain
     version in complex128, and the step's extraction against the
@@ -872,7 +937,7 @@ def check_mixed(device, gen) -> None:
     import json
     import torch
     from portbench import signals
-    from radiocore_tpu_torch.kernels import extract, fir
+    from radiocore_tpu_torch.kernels import extract, fir, quad_demod
     from radiocore_tpu_torch.ops.channelize import (extraction_plan,
                                                     make_extractor)
     from radiocore_tpu_torch.ops.design import deemphasis_taps
@@ -904,9 +969,11 @@ def check_mixed(device, gen) -> None:
 
     counters = {"K-GATHER": extract.gather_launches,
                 "K-EXTRACT": extract.launches, "K-FIR": fir.launches,
+                "K-QDEMOD": quad_demod.launches,
                 **{f"demodulated[{kind}]": pipeline.demodulated[kind]
                    for kind in step.rows}}
     want = {"K-GATHER": 1, "K-EXTRACT": 0, "K-FIR": MIXED_FIR,
+            "K-QDEMOD": len(step.rows),
             **{f"demodulated[{kind}]": len(r)
                for kind, r in step.rows.items()}}
     chained = [step(pool[0], state0)]        # the capture
@@ -1290,15 +1357,21 @@ def check_dead_stations(device, gen) -> None:
 
 def path_counters(c: int, extract_demod: str, mode: str = "fast") -> dict:
     """The launch counters of the kernels a path must go through."""
+    import importlib.util
     from radiocore_tpu_torch.kernels import (extract, extract_demod as xd,
                                              fft_mixed, fft_rows, fir)
     band = {"K-FFT": fft_rows.launches} if c * STATION == N_BAND else {
         "K-MIXED": fft_mixed.launches}
+    # ``--paths`` also drives trees from before K-QDEMOD.
+    demod = {}
+    if importlib.util.find_spec("radiocore_tpu_torch.kernels.quad_demod"):
+        from radiocore_tpu_torch.kernels import quad_demod
+        demod = {"K-QDEMOD": quad_demod.launches}
     if mode == "exact":
-        return {**band, "K-EXTRACT": extract.launches,
+        return {**band, "K-EXTRACT": extract.launches, **demod,
                 "K-FIR": fir.launches}
     rfft = {"K-FFT": fft_rows.launches}
-    middle = {"off": {"K-EXTRACT": extract.launches, **rfft},
+    middle = {"off": {"K-EXTRACT": extract.launches, **demod, **rfft},
               "fused": {"K-XDEMOD": xd.launches, **rfft},
               "spec": {"K-XDEMOD-SPEC": xd.spec_launches}}[extract_demod]
     return {**band, **middle, "K-FIR": fir.launches}
@@ -2294,13 +2367,14 @@ def kernel_counters() -> dict:
     """Every kernel's launch counter and K-FFT's by entry, by name."""
     from radiocore_tpu_torch.kernels import (extract, extract_demod as xd,
                                              fft_mixed, fft_rows, fir,
-                                             nco_pll)
+                                             nco_pll, quad_demod)
     return {"K-FFT": fft_rows.launches,
             **{f"K-FFT {e}": c for e, c in fft_rows.entry_launches.items()},
             "K-MIXED": fft_mixed.launches, "K-EXTRACT": extract.launches,
             "K-GATHER": extract.gather_launches, "K-XDEMOD": xd.launches,
             "K-XDEMOD-SPEC": xd.spec_launches,
-            "K-FIR": fir.launches, "K-NCO": nco_pll.launches}
+            "K-FIR": fir.launches, "K-NCO": nco_pll.launches,
+            "K-QDEMOD": quad_demod.launches}
 
 
 def times_ms(fn):
@@ -3410,6 +3484,10 @@ def main(argv=()) -> int:
         kstats["K-GATHER"], launches["K-GATHER"] = check_gather(device, gen)
         lap("K-GATHER at the wbfm24 plan")
 
+    def phase_qdemod():
+        kstats["K-QDEMOD"] = check_quad_demod(device, gen)
+        lap("K-QDEMOD at the wbfm24 shape")
+
     def phase_mixed():
         # Phase 20: the mixed24 cell's step, WBFM, MFM and FM.
         check_mixed(device, gen)
@@ -3527,8 +3605,9 @@ def main(argv=()) -> int:
         check_synth(device)
         lap("[native] and [synth]")
 
-    for run_phase in (phase_main, phase_gather, phase_mixed, phase_band,
-                      phase_dead, phase_paths96, phase_nco, phase_firpilot, phase_exact, phase_ncopath,
+    for run_phase in (phase_main, phase_gather, phase_qdemod, phase_mixed,
+                      phase_band, phase_dead, phase_paths96, phase_nco,
+                      phase_firpilot, phase_exact, phase_ncopath,
                       phase_classes, phase_deadstep, phase_routes,
                       phase_graphs, phase_apps, phase_acceptance,
                       phase_config5, phase_parallel):

@@ -136,6 +136,7 @@ _SIGNATURES = {
     "rc_nco_pll": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _F,
                    _F, _F, _F, _I, _P],
     "rc_nco_chain_probe": [_P, _P, _L, _I, _I, _I, _F, _F, _F, _F, _P],
+    "rc_quad_demod": [_P, _L, _P, _L, _L, _F, _P],
 }
 
 

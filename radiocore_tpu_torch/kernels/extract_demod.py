@@ -39,7 +39,7 @@ import torch
 from radiocore_tpu_torch.kernels import extract, fft_rows
 from radiocore_tpu_torch.kernels.extract import extract_rows_plain
 from radiocore_tpu_torch.kernels.fft_rows import MIN_ROW, Pass, LaunchCounter
-from radiocore_tpu_torch.ops.demod import quadrature_demod
+from radiocore_tpu_torch.kernels.quad_demod import quad_demod_plain
 
 MAX_DEMOD_ROW = 1 << 18
 LANES = 128     # the JAX kernel's lane digit, for its A == C rule
@@ -276,9 +276,10 @@ def extract_demod_kernel(spectrum: torch.Tensor, a0: int, c: int, m: int,
 def extract_demod_rows_plain(spectrum: torch.Tensor, a0: int, c: int,
                              m: int, gain: Optional[float] = None
                              ) -> torch.Tensor:
-    """Plain version: ``quadrature_demod(extract_rows_plain(...))``."""
+    """Plain version: ``quad_demod_plain(extract_rows_plain(...))``, plain
+    PyTorch on the card too."""
     n = int(spectrum.shape[-1])
-    return quadrature_demod(extract_rows_plain(spectrum, a0, c, m, 1.0 / n),
+    return quad_demod_plain(extract_rows_plain(spectrum, a0, c, m, 1.0 / n),
                             gain)
 
 

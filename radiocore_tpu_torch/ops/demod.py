@@ -7,11 +7,12 @@ The wrapped phase step ``angle(x[n]·conj(x[n−1]))`` equals
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
+
+from radiocore_tpu_torch.kernels.quad_demod import (quad_demod_plain,
+                                                    quad_demod_rows)
 
 
 def quadrature_demod(iq: torch.Tensor,
@@ -24,8 +25,12 @@ def quadrature_demod(iq: torch.Tensor,
     product is formed as ``0 + x[n]·conj(x[n−1])`` in one pass, which
     turns a ``−0`` part into ``+0``, where ``angle(−0 + 0j)`` would be π
     (an extraction kernel's zeros come out signed).
+
+    A CUDA tensor runs K-QDEMOD (``kernels/quad_demod``; complex64 only),
+    a CPU tensor its plain version.
     """
-    d = torch.addcmul(iq.new_zeros(()), iq[..., 1:],
-                      torch.conj(iq[..., :-1]))
-    ph = torch.angle(d) * (1.0 / math.pi if gain is None else gain)
-    return F.pad(ph, (1, 0))
+    if iq.is_cuda:
+        return quad_demod_rows(iq, gain)
+    if iq.device.type != "cpu":
+        raise ValueError(f"quadrature_demod: no kernel for {iq.device}")
+    return quad_demod_plain(iq, gain)
