@@ -182,6 +182,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     two chained chunks, audio and carried histories, against the same
     step on the CPU (1e-4).
 
+21. (run after 20) builds the wbfm48_2band cell's step
+    (``make_multi_station_step(bands=...)``: two 10 MS/s bands of 24
+    stations of 240 000 S/s, each band with its own plan, ``fast``, on
+    the pools of ``portbench/bands.band_pools``) on the card
+    (``[bands]``): ``step.band_rows``; one replayed step's launches
+    (K-GATHER 1, K-EXTRACT 0, K-QDEMOD 1, K-FIR 1, ``pipeline.bands``
+    2), three replays' and one graph; the step time and each stage
+    alone; K-GATHER with two plans against its plain version in
+    complex128 and each band's rows against the one-plan gather of that
+    band alone (bit for bit); two chained chunks, audio and carried
+    histories, against the same step on the CPU (1e-4).
+
 Every phase above drives the entry points a user calls, so on the card
 their steps are the compiled ones: the step times, launches and
 ``[… ] profile`` lines are those of graph replays (``torch.profiler``
@@ -1072,6 +1084,132 @@ def check_mixed(device, gen) -> None:
         for k, g in enumerate(gaps)) + f" (bound {E2E_ABS_MAX:.0e})")
     if not worst <= E2E_ABS_MAX:
         raise AssertionError(f"mixed: card and CPU differ by {worst}")
+
+
+# The wbfm48_2band cell (portbench/configs/wbfm48_2band.json): two bands of
+# the wbfm24 plan's rate and widths, band B's plan band A's moved down
+# 100 kHz, on the pools of the resident_bands traffic.
+BANDS_SEED = (1 << 31) + 2828
+BANDS_STEPS = 3
+
+
+def check_bands(device, gen) -> None:
+    """The wbfm48_2band cell's step, ``make_multi_station_step(bands=...)``
+    at 2 x 24 x 240 000 on the resident_bands pools, on the card:
+    ``step.band_rows``; the launches of one replayed step (K-GATHER 1,
+    K-EXTRACT 0, K-QDEMOD 1, K-FIR 1, ``pipeline.bands`` 2), the same
+    times ``BANDS_STEPS`` over as many replays, and one graph; the step
+    and each stage alone; K-GATHER with both plans against its plain
+    version in complex128, and each band's rows against the one-plan
+    gather of that band; two chained chunks, audio and every carried
+    history, against the same step on the CPU."""
+    import json
+    import torch
+    from portbench import bands
+    from radiocore_tpu_torch.kernels import extract, fir, quad_demod
+    from radiocore_tpu_torch.ops.channelize import make_band_extractor
+    from radiocore_tpu_torch.parallel import pipeline
+
+    del gen
+    with open(REPO / "portbench/configs/wbfm48_2band.json") as f:
+        config = json.load(f)
+    with open(REPO / "portbench/traffic/resident_bands.json") as f:
+        traffic = json.load(f)
+    n, m, ac = (int(config[k])
+                for k in ("band_rate", "station_rate", "audio_rate"))
+    plans = bands.band_offsets(config)
+    if (n, m, ac, tuple(plans[0])) != (W24_BAND, W24_STATION, W24_AUDIO,
+                                       W24_OFFSETS):
+        raise AssertionError("wbfm48_2band's band A is not the wbfm24 plan")
+    pool = bands.band_pools(BANDS_SEED, config, traffic, device)
+
+    def build(where):
+        return pipeline.make_multi_station_step(
+            n, None, m, ac, config["deemphasis_s"], mode=config["mode"],
+            bands=plans, device=where)
+
+    step, state0 = build(device)
+    if step.band_rows != (range(0, 24), range(24, 48)):
+        raise AssertionError(f"bands step rows {step.band_rows}")
+    counters = {"K-GATHER": extract.gather_launches,
+                "K-EXTRACT": extract.launches, "K-FIR": fir.launches,
+                "K-QDEMOD": quad_demod.launches,
+                "pipeline.bands": pipeline.bands}
+    want = {"K-GATHER": 1, "K-EXTRACT": 0, "K-FIR": 1, "K-QDEMOD": 1,
+            "pipeline.bands": 2}
+    chained = [step(pool[0], state0)]        # the capture
+    torch.cuda.synchronize()
+    for ctr in counters.values():
+        ctr.reset()
+    chained.append(step(pool[1], chained[0][1]))
+    torch.cuda.synchronize()
+    one = {name: ctr.count for name, ctr in counters.items()}
+    state = chained[1][1]
+    for ctr in counters.values():
+        ctr.reset()
+    for k in range(BANDS_STEPS):
+        _, state = step(pool[2 + k % 2], state)
+    torch.cuda.synchronize()
+    many = {name: ctr.count for name, ctr in counters.items()}
+    print(f"[bands] {len(plans)} bands x {len(plans[0])} x {m} -> {ac}, "
+          f"band B's plan band A's moved {plans[1][0] - plans[0][0]} Hz: "
+          f"launches of one replayed step {one}; over {BANDS_STEPS} "
+          f"replays {many}; graphs {step.graph_count}")
+    if one != want:
+        raise AssertionError(f"bands step launches {one}, want {want}")
+    if many != {name: BANDS_STEPS * v for name, v in want.items()}:
+        raise AssertionError(f"bands step launches over {BANDS_STEPS} "
+                             f"replays {many}")
+    if step.graph_count != 1:
+        raise AssertionError(f"bands step graphs {step.graph_count}")
+    print(f"[bands] {step_ms(step, pool[0], state)}; stages alone "
+          f"(median of 20) "
+          + ", ".join(f"{k} {v:.3f} ms"
+                      for k, v in stage_ms(step, pool[0], state).items()))
+
+    # K-GATHER with both plans against complex128 and the one-plan gather.
+    spectra = step.stages["band_fft"](pool[0])
+    ex = make_band_extractor(n, [[-o for o in p] for p in plans], m)
+    got = ex.gather(spectra)
+    _, window, fix = ex.by_band[0].gather_plan
+    at = torch.tensor([b * n + a for b, e in enumerate(ex.by_band)
+                       for a in e.gather_plan[0]], device=device)
+    ref = extract.extract_gather_rows_plain(
+        spectra.to(torch.complex128), at, window.on(device).double(), fix)
+    err = rel_l2(got, ref)
+    del ref
+    gather = [(name, ms) for name, ms in kernel_times_ms(
+        lambda: ex.gather(spectra)) if "gather_kernel" in name]
+    plain = time_ms(lambda: extract.extract_gather_rows_plain(
+        spectra, at, window.on(device), fix))
+    report(f"K-GATHER two plans {at.numel()}x{m} in 2x{n} rel_l2", err,
+           REL_L2_MAX, sum(ms for _, ms in gather), plain,
+           bound(16 * at.numel() * m, 0.0))
+    alone = [bool(torch.equal(got[24 * b:24 * (b + 1)],
+                              e.gather(spectra[b])))
+             for b, e in enumerate(ex.by_band)]
+    print(f"[bands] each band's rows against the one-plan gather of that "
+          f"band alone, bit for bit: {alone}")
+    if not all(alone):
+        raise AssertionError(f"bands gather against the one-plan: {alone}")
+    del spectra, got
+
+    # Two chained chunks against the same step on the CPU.
+    step_cpu, state_cpu = build("cpu")
+    gaps = []
+    for k, (audio, state) in enumerate(chained):
+        audio_cpu, state_cpu = step_cpu(pool[k].cpu(), state_cpu)
+        if not bool(torch.isfinite(audio).all()):
+            raise AssertionError("bands: non-finite audio")
+        leaves = [("audio", audio, audio_cpu)] + [
+            (key, state[key], v) for key, v in state_cpu.items()]
+        gaps.append({what: max_abs(a.cpu(), b) for what, a, b in leaves})
+    worst = max(max(g.values()) for g in gaps)
+    print(f"[bands] chunks 1-2 chained, card vs CPU max_abs: " + "; ".join(
+        f"chunk {k + 1} " + ", ".join(f"{w} {v:.2e}" for w, v in g.items())
+        for k, g in enumerate(gaps)) + f" (bound {E2E_ABS_MAX:.0e})")
+    if not worst <= E2E_ABS_MAX:
+        raise AssertionError(f"bands: card and CPU differ by {worst}")
 
 
 def _graphed(fn):
@@ -3493,6 +3631,11 @@ def main(argv=()) -> int:
         check_mixed(device, gen)
         lap("[mixed] the mixed24 step")
 
+    def phase_bands():
+        # Phase 21: the wbfm48_2band cell's step, two bands.
+        check_bands(device, gen)
+        lap("[bands] the wbfm48_2band step")
+
     def phase_band():
         # Phase 5: the 96-station kernels against their plain versions.
         kstats.update(check_band_kernels(device, gen))
@@ -3606,8 +3749,8 @@ def main(argv=()) -> int:
         lap("[native] and [synth]")
 
     for run_phase in (phase_main, phase_gather, phase_qdemod, phase_mixed,
-                      phase_band, phase_dead, phase_paths96, phase_nco,
-                      phase_firpilot, phase_exact, phase_ncopath,
+                      phase_bands, phase_band, phase_dead, phase_paths96,
+                      phase_nco, phase_firpilot, phase_exact, phase_ncopath,
                       phase_classes, phase_deadstep, phase_routes,
                       phase_graphs, phase_apps, phase_acceptance,
                       phase_config5, phase_parallel):

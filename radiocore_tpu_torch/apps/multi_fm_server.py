@@ -22,6 +22,12 @@ Run headless (no SDR, ZMQ optional; ``--device cpu`` without a card):
 extract+demod kernels decode WBFM only, so ``fused`` and ``spec`` serve
 ``--stations 1`` (station 0 is WBFM); with more stations, whose modes
 rotate WBFM, MFM, FM, ``main`` refuses them before it builds anything.
+
+``--fused --band-centers F1,F2,...`` serves several bands of
+``--band-rate`` side by side (the upstream's fixed-rate SDR, one a band)
+in one step: ``--stations`` WBFM stations a band, 400 kHz apart about
+each centre, each band from its own source, every station under its own
+topic.
 """
 
 from __future__ import annotations
@@ -119,7 +125,8 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
                 timer: Optional[StageTimer] = None, *,
                 device: Optional[torch.device | str] = None,
                 routes: Optional[Routes] = None,
-                extract_demod: str = "off", pll: str = "analytic") -> None:
+                extract_demod: str = "off", pll: str = "analytic",
+                centers: Optional[Sequence[float]] = None) -> None:
     """Serving through the fused multi-station step on ``device`` (the
     first CUDA device when None): band FFT → all-station extraction →
     each station's demodulator, batched by kind (``parallel/pipeline.py``,
@@ -139,29 +146,50 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
     ``pll`` (``"nco"``, the feedback pilot loop, with ``mode="exact"``)
     go to ``make_multi_station_step``; ``mode`` and ``pll`` are the WBFM
     stations'.
+
+    ``centers`` serves several bands of ``band_rate`` at once (receivers
+    side by side, the step's ``bands``): band b is centred at
+    ``centers[b]``, and each spec belongs to the band whose centre is
+    nearest. ``source`` is then a list of sources, one a band, each read
+    one chunk a step. Every station is WBFM (a batch of bands takes no
+    mix). ``ValueError`` refuses a source whose own ``band_rate`` or
+    ``sample_rate`` is not ``band_rate``, and sources that fall out of
+    step (a chunk of another length than ``band_rate``);
+    ``make_multi_station_step`` refuses a station whose channel leaves
+    its band and a band with no station.
     """
     from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
 
     device = resolve_device(device)
     metrics = metrics or Metrics()
     timer = timer or StageTimer()
-    n_band = int(band_rate)
-    center = (min(s.frequency for s in specs) +
-              max(s.frequency for s in specs)) / 2
-    offsets = [int(s.frequency - center) for s in specs]
     widths = sorted({int(s.bandwidth) for s in specs})
     if len(widths) != 1:
         raise ValueError(f"serve_fused takes one station bandwidth for "
                          f"every spec (the step's station chunk); got "
                          f"{widths}")
-    step, state = make_multi_station_step(
-        n_band, offsets, widths[0], int(audio_rate), mode=mode,
-        extract_demod=extract_demod, pll=pll,
-        kinds=[s.mode for s in specs], device=device, routes=routes)
+    n_band = int(band_rate)
+    if centers is None:
+        center = (min(s.frequency for s in specs) +
+                  max(s.frequency for s in specs)) / 2
+        offsets = [int(s.frequency - center) for s in specs]
+        step, state = make_multi_station_step(
+            n_band, offsets, widths[0], int(audio_rate), mode=mode,
+            extract_demod=extract_demod, pll=pll,
+            kinds=[s.mode for s in specs], device=device, routes=routes)
+        # Station i's row: (kind, row in its kind's audio). All WBFM: one
+        # tensor in station order.
+        rows = getattr(step, "rows", {"wbfm": range(len(specs))})
+        read = source.read_chunk
+    else:
+        order, plans = _band_plan(specs, n_band, centers, source)
+        step, state = make_multi_station_step(
+            n_band, None, widths[0], int(audio_rate), mode=mode,
+            extract_demod=extract_demod, pll=pll, bands=plans,
+            device=device, routes=routes)
+        rows = {"wbfm": order}
+        read = _bands_reader(source, len(plans), n_band)
     topics = [int(s.frequency).to_bytes(4, "little") for s in specs]
-    # Station i's row: (kind, row in its kind's audio). All WBFM: one
-    # tensor in station order.
-    rows = getattr(step, "rows", {"wbfm": range(len(specs))})
     where = {i: (kind, j) for kind, idx in rows.items()
              for j, i in enumerate(idx)}
 
@@ -170,7 +198,7 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
     def host_chunks():
         for _ in range(int(round(seconds))):
             with timer.stage("source"):
-                chunk = source.read_chunk(1.0)
+                chunk = read(1.0)
             yield chunk
 
     for band in pipe.stream(host_chunks()):
@@ -196,6 +224,51 @@ def serve_fused(specs: Sequence[StationSpec], band_rate: float,
         metrics.gauge("chunk_seconds", time.monotonic() - t0)
 
 
+def _band_plan(specs: Sequence[StationSpec], n_band: int,
+               centers: Sequence[float], sources):
+    """``(order, plans)`` of a batch of bands: the spec index of each step
+    row (band after band), and each band's offsets from its centre.
+    Refuses a source of another rate than the bands' and a station that
+    is not WBFM."""
+    rates = {int(r) for r in (getattr(src, "band_rate",
+                                      getattr(src, "sample_rate", n_band))
+                              for src in sources)}
+    if rates != {n_band}:
+        raise ValueError(f"bands of unequal rate {sorted(rates | {n_band})}"
+                         f": one step takes bands of one rate")
+    members = [[] for _ in centers]
+    for i, spec in enumerate(specs):
+        if spec.mode != "wbfm":
+            raise ValueError(f"the station at {spec.frequency / 1e6:.4f} "
+                             f"MHz is {spec.mode!r}: a batch of bands "
+                             f"decodes WBFM only")
+        b = min(range(len(centers)),
+                key=lambda k: abs(spec.frequency - centers[k]))
+        members[b].append((i, int(round(spec.frequency - centers[b]))))
+    order = [i for m in members for i, _ in m]
+    return order, [[off for _, off in m] for m in members]
+
+
+def _bands_reader(sources, n_bands: int, n_band: int):
+    """``read(seconds) -> (B, n_band)``: one chunk of every band, one
+    source a band; a chunk of another length raises ``ValueError`` (the
+    sources fell out of step)."""
+    if len(sources) != n_bands:
+        raise ValueError(f"{len(sources)} sources for {n_bands} bands")
+
+    def read(seconds: float) -> np.ndarray:
+        out = np.empty((n_bands, n_band), np.complex64)
+        for b, src in enumerate(sources):
+            chunk = np.asarray(src.read_chunk(seconds))
+            if chunk.shape != (n_band,):
+                raise ValueError(f"source {b} gave {chunk.shape[-1]} "
+                                 f"samples where the others give {n_band}: "
+                                 f"the bands fell out of step")
+            out[b] = chunk
+        return out
+    return read
+
+
 def main(argv=None) -> None:
     """CLI entry: serve N stations as ZMQ PUB topics (see --help)."""
     parser = argparse.ArgumentParser(description=__doc__)
@@ -216,6 +289,11 @@ def main(argv=None) -> None:
                         default="analytic",
                         help="the fused step's pilot tracker: 'nco' runs "
                              "the exact tail with the feedback loop")
+    parser.add_argument("--band-centers", default=None,
+                        help="with --fused: comma-separated centres (Hz) "
+                             "of bands of --band-rate served side by side "
+                             "in one step, --stations WBFM stations a "
+                             "band")
     parser.add_argument("--wav-prefix", default=None,
                         help="also write each station to PREFIX_<i>.wav")
     parser.add_argument("--device", default=None,
@@ -228,24 +306,41 @@ def main(argv=None) -> None:
     extract_demod = os.environ.get("RADIOCORE_TPU_EXTRACT_DEMOD", "off")
     print(f"routes: {routes}" + (f", extract_demod={extract_demod}"
                                  if args.fused else ""))
-    base = 96.9e6
-    modes = ["wbfm", "mfm", "fm"]
-    specs = [StationSpec(base + i * 400e3,
-                         modes[i % 3], args.bandwidth)
-             for i in range(args.stations)]
-    if (args.fused and extract_demod != "off"
-            and any(s.mode != "wbfm" for s in specs)):
-        parser.error(f"RADIOCORE_TPU_EXTRACT_DEMOD={extract_demod} "
-                     f"decodes WBFM only, and --stations "
-                     f"{args.stations} serves WBFM, MFM and FM in "
-                     f"rotation: use --stations 1, or leave the variable "
-                     f"unset ('off')")
-    tuner = build_tuner(specs, args.audio_rate, args.band_rate,
-                        device=device, routes=routes)
-
-    n_band = int(tuner.input_bandwidth)
-    offsets = [int(s.frequency - tuner.input_frequency) for s in specs]
-    source = SyntheticFmSource(n_band, offsets, int(args.bandwidth))
+    centers = None
+    if args.band_centers is not None:
+        if not args.fused:
+            parser.error("--band-centers serves bands side by side through "
+                         "the fused step: add --fused")
+        # --stations WBFM stations a band, 400 kHz apart about its centre,
+        # each band from its own source.
+        centers = [float(f) for f in args.band_centers.split(",")]
+        band_rate = args.band_rate
+        plan = [int((2 * i - (args.stations - 1)) * 200e3)
+                for i in range(args.stations)]
+        specs = [StationSpec(c + off, "wbfm", args.bandwidth)
+                 for c in centers for off in plan]
+        source = [SyntheticFmSource(int(band_rate), plan,
+                                    int(args.bandwidth), seed=b)
+                  for b in range(len(centers))]
+    else:
+        base = 96.9e6
+        modes = ["wbfm", "mfm", "fm"]
+        specs = [StationSpec(base + i * 400e3,
+                             modes[i % 3], args.bandwidth)
+                 for i in range(args.stations)]
+        if (args.fused and extract_demod != "off"
+                and any(s.mode != "wbfm" for s in specs)):
+            parser.error(f"RADIOCORE_TPU_EXTRACT_DEMOD={extract_demod} "
+                         f"decodes WBFM only, and --stations "
+                         f"{args.stations} serves WBFM, MFM and FM in "
+                         f"rotation: use --stations 1, or leave the "
+                         f"variable unset ('off')")
+        tuner = build_tuner(specs, args.audio_rate, args.band_rate,
+                            device=device, routes=routes)
+        band_rate = tuner.input_bandwidth
+        offsets = [int(s.frequency - tuner.input_frequency) for s in specs]
+        source = SyntheticFmSource(int(band_rate), offsets,
+                                   int(args.bandwidth))
 
     publisher = None
     if not args.no_zmq:
@@ -263,11 +358,12 @@ def main(argv=None) -> None:
     timer = StageTimer()
     try:
         if args.fused:
-            serve_fused(specs, tuner.input_bandwidth, args.audio_rate,
+            serve_fused(specs, band_rate, args.audio_rate,
                         source, args.seconds, publisher, sinks, metrics,
                         mode="exact" if args.pll == "nco" else "fast",
                         timer=timer, device=device, routes=routes,
-                        extract_demod=extract_demod, pll=args.pll)
+                        extract_demod=extract_demod, pll=args.pll,
+                        centers=centers)
         else:
             serve(tuner, source, args.seconds, publisher, sinks, metrics,
                   timer=timer)
@@ -277,6 +373,9 @@ def main(argv=None) -> None:
                 s.close()
         if publisher is not None:
             publisher.close()
+    if centers:
+        print(f"bands: {len(centers)} of {int(band_rate)} S/s centred at "
+              + ", ".join(f"{c / 1e6:.4f}" for c in centers) + " MHz")
     snap = metrics.snapshot()
     print(f"served {int(snap['chunks'])} chunks x {len(specs)} stations "
           f"on {device}, last chunk {snap['chunk_seconds']:.3f}s")

@@ -1,6 +1,8 @@
 // K-GATHER: the extraction's reorder for any plan, every station in one
-// launch: spectrum rows (batch, n) -> out (batch, C, m), in the output
-// order [pos, neg] of ops/channelize's reorder, windowed and scaled.
+// launch: spectrum rows (bands, n) -> out (rows, m), in the output order
+// [pos, neg] of ops/channelize's reorder, windowed and scaled, each row's
+// run from its own spectrum row and start. One plan over a batch of
+// spectra is the case at[b * C + c] = b * n + starts[c].
 //
 // Replaces no TPU kernel. The reference lowers the per-slice extraction
 // (radiocore_tpu/ops/channelize.py, make_extractor's slice lowering) to
@@ -10,15 +12,16 @@
 // kernels that only move bytes. K-EXTRACT (extract.cu) covers the
 // uniform power-of-two plans alone; this kernel takes the rest.
 //
-// Station c's run is the m + lead bins from bin starts[c], mod n (lead =
-// 1 for an even m: the fix bin comes first). Output j < m2 (= m/2 + 1) is
-// run bin lead + neg + j, output j >= m2 is run bin lead + j - m2 (neg =
-// m - m2), each times win[j] (the hann of extraction_plan in output
-// order with the extraction's whole scale folded in: 1/s_fac and the
-// inverse transform's 1/m, so that neither takes a pass). For an even m,
-// output m2 - 1 also adds run bin 0 times `fix`. Every product and that
-// one sum are rounded on their own (no contraction into an FMA), as the
-// plain version (kernels/extract.py extract_gather_plain) computes them.
+// Row r's run is the m + lead bins of spectrum row at[r] / n from bin
+// at[r] mod n, mod n (lead = 1 for an even m: the fix bin comes first).
+// Output j < m2 (= m/2 + 1) is run bin lead + neg + j, output j >= m2 is
+// run bin lead + j - m2 (neg = m - m2), each times win[j] (the hann of
+// extraction_plan in output order with the extraction's whole scale
+// folded in: 1/s_fac and the inverse transform's 1/m, so that neither
+// takes a pass). For an even m, output m2 - 1 also adds run bin 0 times
+// `fix`. Every product and that one sum are rounded on their own (no
+// contraction into an FMA), as the plain version (kernels/extract.py
+// extract_gather_rows_plain) computes them.
 //
 // What bounds it on an H100: by the bytes it must move, device memory:
 // each station's m bins read once and its m IQ points written once, 16 B
@@ -50,8 +53,7 @@ namespace rc {
 // namespace: nvcc's host stub must name the type.
 struct GatherPlan {
   long long n;  // bins of a spectrum row
-  int rows;     // batch * stations
-  int stations;
+  int rows;     // output rows, one a station of a spectrum row
   int m;        // points a station
   int m2;       // m / 2 + 1: outputs taken from the run's upper part
   int neg;      // m - m2
@@ -87,12 +89,12 @@ __device__ __forceinline__ float2 fold(float2 v, float2 x, float w) {
 
 __global__ void __launch_bounds__(kThreads)
     gather_kernel(const float2* __restrict__ spec, float2* __restrict__ out,
-                  const long long* __restrict__ starts,
+                  const long long* __restrict__ at,
                   const float* __restrict__ win, const rc::GatherPlan p) {
   for (int row = blockIdx.y; row < p.rows; row += gridDim.y) {
-    const int b = row / p.stations;
+    const long long b = at[row] / p.n;  // at[row] = spectrum row * n + start
     const float2* sp = spec + b * p.n;
-    const long long start = starts[row - b * p.stations];
+    const long long start = at[row] - b * p.n;
     const bool vec = (reinterpret_cast<uintptr_t>(sp) & 15) == 0;
     const long long base = (long long)row * p.m;  // flat index of output 0
     // Pair k holds outputs j = 2k - lag and j + 1, at even flat positions.
@@ -155,28 +157,25 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// K-GATHER: spectrum (batch, n) -> out (batch, stations, m), station c's
-// run from bin starts[c] (starts: `stations` int64 in [0, n)), times win
-// (m float32, output order); an even m folds the fix bin with weight
-// `fix`. `out` must be 16-byte aligned and `win` 8-byte aligned; a
-// spectrum row that is not 16-byte aligned takes 8-byte loads. Ordered
-// on `stream`. Returns a cudaError_t.
-extern "C" int rc_extract_gather(const void* spectrum, void* out,
-                                 const void* starts, const void* win,
-                                 long long n, long long batch,
-                                 long long stations, long long m, float fix,
-                                 void* stream) {
+// K-GATHER: spectra (bands, n) -> out (rows, m), row r's run from bin
+// at[r] mod n of spectrum row at[r] / n (at: `rows` int64, each in
+// [0, bands * n)), times win (m float32, output order); an even m folds
+// the fix bin with weight `fix`. `out` must be 16-byte aligned and `win`
+// 8-byte aligned; a spectrum row that is not 16-byte aligned takes 8-byte
+// loads. Ordered on `stream`. Returns a cudaError_t.
+extern "C" int rc_extract_gather(const void* spectra, void* out,
+                                 const void* at, const void* win,
+                                 long long n, long long rows, long long m,
+                                 float fix, void* stream) {
   const long long lead = (m % 2 == 0) ? 1 : 0;
-  if (m < 1 || m > INT_MAX / 2 || m + lead > n || batch < 1 ||
-      stations < 1 || batch * stations > INT_MAX ||
-      (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
+  if (m < 1 || m > INT_MAX / 2 || m + lead > n || rows < 1 ||
+      rows > INT_MAX || (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(win) & 7) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   rc::GatherPlan p;
   p.n = n;
-  p.rows = (int)(batch * stations);
-  p.stations = (int)stations;
+  p.rows = (int)rows;
   p.m = (int)m;
   p.m2 = (int)(m / 2 + 1);
   p.neg = p.m - p.m2;
@@ -185,7 +184,7 @@ extern "C" int rc_extract_gather(const void* spectrum, void* out,
   const unsigned gx = (unsigned)((m / 2 + 1 + kBlockPairs - 1) / kBlockPairs);
   const unsigned gy = (unsigned)(p.rows < kMaxGridY ? p.rows : kMaxGridY);
   gather_kernel<<<dim3(gx, gy), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)spectrum, (float2*)out, (const long long*)starts,
+      (const float2*)spectra, (float2*)out, (const long long*)at,
       (const float*)win, p);
   return (int)cudaGetLastError();
 }

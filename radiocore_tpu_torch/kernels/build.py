@@ -125,7 +125,7 @@ _SIGNATURES = {
     "rc_l2_cache_bytes": [_P],
     "rc_extract_rows": [_P, _P, _P, _P, _I, _L, _L, _I, _L, _L, _L, _F, _P,
                         _P],
-    "rc_extract_gather": [_P, _P, _P, _P, _L, _L, _L, _L, _F, _P],
+    "rc_extract_gather": [_P, _P, _P, _P, _L, _L, _L, _F, _P],
     "rc_extract_demod": [_P, _P, _P, _P, _P, _L, _L, _I, _L, _L, _L, _F, _L,
                          _P, _P],
     "rc_atan2_fast": [_P, _P, _P, _L, _P],

@@ -18,10 +18,12 @@ extraction's reorder for any other plan: every station's run gathered in
 place (mod n) into the output order of ``ops/channelize``'s reorder,
 windowed, scaled and with the even-m fix bin folded, in one launch. The
 inverse transform follows it as a library call, unnormalized: the
-extractor folds the whole scale into the window.
+extractor folds the whole scale into the window. Each output row reads
+its own spectrum from its own start (:func:`extract_gather_rows`), so a
+batch of bands with a plan each takes one launch as well.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs
-:func:`extract_rows_plain` or :func:`extract_gather_plain`.
+:func:`extract_rows_plain` or :func:`extract_gather_rows_plain`.
 """
 
 from __future__ import annotations
@@ -227,66 +229,110 @@ def gather_ok(n: int, m: int) -> bool:
     return 1 <= m <= n - (1 - m % 2)
 
 
+def _as_rows(spectrum: torch.Tensor, starts: torch.Tensor):
+    """One plan over a batch of spectra as K-GATHER's rows: ``spectrum
+    (..., n)`` as ``(batch, n)`` and each row's flat start ``b·n +
+    starts[c]`` (``starts`` itself for one spectrum)."""
+    if starts.dim() != 1 or starts.shape[0] < 1:
+        raise ValueError("extract_gather: starts must be (C,), C >= 1")
+    n = int(spectrum.shape[-1])
+    batch = spectrum.numel() // n
+    at = starts
+    if batch != 1:
+        at = (starts + torch.arange(0, batch * n, n,
+                                    device=starts.device)[:, None])
+    return spectrum.reshape(batch, n), at.reshape(-1)
+
+
 def extract_gather_plain(spectrum: torch.Tensor, starts: torch.Tensor,
                          window: torch.Tensor,
                          fix: Optional[float]) -> torch.Tensor:
-    """Plain version: ``spectrum (..., n) → (..., C, m)``, each station's
-    bins gathered by index, times ``window`` (``m`` points, output order,
-    scale folded in); an even m adds the fix bin (run bin 0) times
-    ``fix`` to output ``m//2``. Output j is run bin ``lead + neg + j``
-    for ``j < m2`` and ``lead + j − m2`` after (``m2 = m//2 + 1``,
-    ``neg = m − m2``, ``lead`` = 1 for an even m: the fix bin)."""
-    n = int(spectrum.shape[-1])
-    m = int(window.shape[-1])
-    m2 = m // 2 + 1
-    j = torch.arange(m, device=starts.device)
-    off = (1 - m % 2) + torch.where(j < m2, m - m2 + j, j - m2)
-    y = spectrum[..., (starts[:, None] + off) % n] * window
-    if m % 2 == 0:
-        y[..., m // 2] += spectrum[..., starts] * fix
-    return y
-
-
-def _gather_kernel(spectrum: torch.Tensor, starts: torch.Tensor,
-                   window: torch.Tensor, fix: Optional[float]
-                   ) -> torch.Tensor:
-    from radiocore_tpu_torch.kernels import build
-    if spectrum.dtype != torch.complex64 or window.dtype != torch.float32:
-        raise TypeError(f"extract_gather: kernel takes a complex64 spectrum "
-                        f"and a float32 window, got {spectrum.dtype} and "
-                        f"{window.dtype}")
-    if not spectrum.is_contiguous():
-        raise ValueError("extract_gather: kernel takes a contiguous spectrum")
-    if (starts.dtype != torch.int64 or not starts.is_contiguous()
-            or not window.is_contiguous()):
-        raise ValueError("extract_gather: kernel takes contiguous int64 "
-                         "starts and a contiguous window")
-    n = int(spectrum.shape[-1])
-    m = int(window.shape[-1])
-    c = int(starts.shape[0])
+    """Plain version of :func:`extract_gather`: ``spectrum (..., n) →
+    (..., C, m)``, by :func:`extract_gather_rows_plain`."""
     lead = spectrum.shape[:-1]
-    batch = spectrum.numel() // n
-    y = torch.empty(lead + (c, m), dtype=torch.complex64,
-                    device=spectrum.device)
-    err = build.library().rc_extract_gather(
-        spectrum.data_ptr(), y.data_ptr(), starts.data_ptr(),
-        window.data_ptr(), n, batch, c, m, float(fix or 0.0),
-        torch.cuda.current_stream().cuda_stream)
-    build.check(err, f"rc_extract_gather(n={n}, m={m}, c={c})")
-    gather_launches.count += 1
-    return y
+    return extract_gather_rows_plain(*_as_rows(spectrum, starts), window,
+                                     fix).reshape(lead + (starts.shape[0], -1))
 
 
 def extract_gather(spectrum: torch.Tensor, starts: torch.Tensor,
                    window: torch.Tensor,
                    fix: Optional[float] = None) -> torch.Tensor:
-    """The extraction's reorder for any plan: ``spectrum (..., n) →
+    """The extraction's reorder for one plan: ``spectrum (..., n) →
     (..., C, m)``, station c's run from bin ``starts[c]`` (``(C,)``
     int64 on the spectrum's device) in ``make_extractor``'s output order,
     times ``window`` (``(m,)`` float32 there, the scale folded in), and
-    for an even m the fix bin times ``fix``. K-GATHER for a CUDA tensor,
-    :func:`extract_gather_plain` for a CPU one."""
-    n = int(spectrum.shape[-1])
+    for an even m the fix bin times ``fix``: :func:`extract_gather_rows`
+    over the batch's spectra, one K-GATHER launch for a CUDA tensor."""
+    lead = spectrum.shape[:-1]
+    return extract_gather_rows(*_as_rows(spectrum, starts), window,
+                               fix).reshape(lead + (starts.shape[0], -1))
+
+
+def extract_gather_rows_plain(spectra: torch.Tensor, at: torch.Tensor,
+                              window: torch.Tensor,
+                              fix: Optional[float]) -> torch.Tensor:
+    """Plain version of :func:`extract_gather_rows`: ``spectra (B, n) →
+    (R, m)``, row r's bins gathered by index from spectrum ``at[r] // n``
+    from bin ``at[r] mod n``, times ``window`` (``m`` points, output
+    order, scale folded in); an even m adds the fix bin (run bin 0) times
+    ``fix`` to output ``m//2``. Output j is run bin ``lead + neg + j`` for
+    ``j < m2`` and ``lead + j − m2`` after (``m2 = m//2 + 1``, ``neg = m −
+    m2``, ``lead`` = 1 for an even m: the fix bin)."""
+    n = int(spectra.shape[-1])
+    m = int(window.shape[-1])
+    m2 = m // 2 + 1
+    flat = spectra.reshape(-1)
+    band, start = at // n, at % n
+    j = torch.arange(m, device=at.device)
+    off = (1 - m % 2) + torch.where(j < m2, m - m2 + j, j - m2)
+    y = flat[band[:, None] * n + (start[:, None] + off) % n] * window
+    if m % 2 == 0:
+        y[:, m // 2] += flat[at] * fix
+    return y
+
+
+def _gather_kernel(spectra: torch.Tensor, at: torch.Tensor,
+                   window: torch.Tensor, fix: Optional[float]
+                   ) -> torch.Tensor:
+    from radiocore_tpu_torch.kernels import build
+    if spectra.dtype != torch.complex64 or window.dtype != torch.float32:
+        raise TypeError(f"extract_gather: kernel takes complex64 spectra "
+                        f"and a float32 window, got {spectra.dtype} and "
+                        f"{window.dtype}")
+    if not spectra.is_contiguous():
+        raise ValueError("extract_gather: kernel takes contiguous spectra")
+    if (at.dtype != torch.int64 or not at.is_contiguous()
+            or not window.is_contiguous()):
+        raise ValueError("extract_gather: kernel takes contiguous int64 "
+                         "starts and a contiguous window")
+    n = int(spectra.shape[-1])
+    m = int(window.shape[-1])
+    rows = int(at.shape[0])
+    y = torch.empty((rows, m), dtype=torch.complex64, device=spectra.device)
+    err = build.library().rc_extract_gather(
+        spectra.data_ptr(), y.data_ptr(), at.data_ptr(), window.data_ptr(),
+        n, rows, m, float(fix or 0.0),
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, f"rc_extract_gather(n={n}, m={m}, rows={rows})")
+    gather_launches.count += 1
+    return y
+
+
+def extract_gather_rows(spectra: torch.Tensor, at: torch.Tensor,
+                        window: torch.Tensor,
+                        fix: Optional[float] = None) -> torch.Tensor:
+    """The reorder with a start a row: ``spectra (B, n) → (R, m)``, row r
+    the run of spectrum ``at[r] // n`` from bin ``at[r] mod n`` (``at``:
+    ``(R,)`` int64 on the spectra's device, each in ``[0, B·n)``), in
+    ``make_extractor``'s output order, window and fix bin, so that a batch
+    of bands with a plan each takes one launch and each row is bit for
+    bit what :func:`extract_gather` writes for its band alone. K-GATHER
+    (one launch) for a CUDA tensor, :func:`extract_gather_rows_plain` for
+    a CPU one."""
+    if spectra.dim() != 2:
+        raise ValueError(f"extract_gather: spectra must be (B, n), got "
+                         f"{tuple(spectra.shape)}")
+    n = int(spectra.shape[-1])
     m = int(window.shape[-1])
     if not gather_ok(n, m):
         raise ValueError(f"extract_gather: {m}-point stations do not fit "
@@ -294,10 +340,10 @@ def extract_gather(spectrum: torch.Tensor, starts: torch.Tensor,
     if (m % 2 == 0) != (fix is not None):
         raise ValueError(f"extract_gather: an even m takes a fix weight, "
                          f"an odd one none (m={m}, fix={fix})")
-    if starts.dim() != 1 or starts.shape[0] < 1:
-        raise ValueError("extract_gather: starts must be (C,), C >= 1")
-    if spectrum.is_cuda:
-        return _gather_kernel(spectrum, starts, window, fix)
-    if spectrum.device.type != "cpu":
-        raise ValueError(f"extract_gather: no kernel for {spectrum.device}")
-    return extract_gather_plain(spectrum, starts, window, fix)
+    if at.dim() != 1 or at.shape[0] < 1:
+        raise ValueError("extract_gather: at must be (R,), R >= 1")
+    if spectra.is_cuda:
+        return _gather_kernel(spectra, at, window, fix)
+    if spectra.device.type != "cpu":
+        raise ValueError(f"extract_gather: no kernel for {spectra.device}")
+    return extract_gather_rows_plain(spectra, at, window, fix)

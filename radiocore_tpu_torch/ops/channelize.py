@@ -26,6 +26,12 @@ IFFT. ``routes.extract_ifft`` picks the lowering, as the reference's
 
 The reorder in torch (``native``, ``fourstep``, ``pallas``, and every
 CPU spectrum) is K-GATHER's counterpart on the card.
+
+A batch of bands of one rate, each with its own plan
+(:func:`make_band_extractor`), takes one K-GATHER launch over every band's
+stations on a complex64 CUDA batch under ``auto`` and ``fused``, then one
+inverse over all rows, where no band's plan is one K-EXTRACT takes;
+otherwise each band's own extractor, the rows joined band after band.
 """
 
 from __future__ import annotations
@@ -36,8 +42,10 @@ import numpy as np
 import torch
 
 from radiocore_tpu_torch.kernels import fft_rows
-from radiocore_tpu_torch.kernels.extract import (extract_gather, extract_ok,
-                                                 extract_rows, gather_ok)
+from radiocore_tpu_torch.kernels.extract import (extract_gather,
+                                                 extract_gather_rows,
+                                                 extract_ok, extract_rows,
+                                                 gather_ok)
 from radiocore_tpu_torch.ops import design
 from radiocore_tpu_torch.ops import fft as _fft
 from radiocore_tpu_torch.ops.consts import HostConst
@@ -193,4 +201,74 @@ def _extractor(n: int, shifts: Tuple[int, ...], m: int,
     # against the other.
     extract.reorder = lambda spectrum: reorder_rows(spectrum) / (s_fac * m)
     extract.gather = gather_rows
+    extract.kernel_ok = kernel_ok
+    # K-GATHER's plan: each station's start, the scaled window, the fix
+    # weight.
+    extract.gather_plan = (starts, wg_c, fix_g)
+    return extract
+
+
+def make_band_extractor(n: int, band_shifts: Sequence[Sequence[int]],
+                        bandwidth: int, routes: Optional[Routes] = None
+                        ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``spectra (B, n) → channels (R, bandwidth)`` for B bands of one
+    rate, band b's stations at its own rolls ``band_shifts[b]``, the rows
+    band after band (R stations in all).
+
+    On a complex64 CUDA batch under ``extract_ifft`` ``auto`` or
+    ``fused``, where no band's plan is one that K-EXTRACT takes: one
+    K-GATHER launch over every band's stations
+    (:func:`~radiocore_tpu_torch.kernels.extract.extract_gather_rows`),
+    each row bit for bit what the band's own extractor gathers, then one
+    unnormalized inverse over all R rows. Otherwise each band's
+    :func:`make_extractor` on its spectrum, the rows joined, so that a
+    band whose plan K-EXTRACT takes goes there as it would alone. A batch
+    of another shape than ``(B, n)`` raises ``ValueError``. The
+    extractor's ``gather`` attribute gives the gathered rows (the
+    inverse's input), ``gather_route(spectra)`` whether a batch takes the
+    one launch, ``by_band`` the bands' own extractors.
+    """
+    return _band_extractor(int(n), tuple(tuple(int(s) for s in shifts)
+                                         for shifts in band_shifts),
+                           int(bandwidth), resolve(routes))
+
+
+@device_cache(maxsize=8)
+def _band_extractor(n: int, band_shifts: Tuple[Tuple[int, ...], ...],
+                    m: int, routes: Routes
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    if not band_shifts or not all(band_shifts):
+        raise ValueError("make_band_extractor: every band needs a station")
+    by_band = [_extractor(n, shifts, m, routes) for shifts in band_shifts]
+    at_c = HostConst(np.asarray(
+        [b * n + a for b, ex in enumerate(by_band)
+         for a in ex.gather_plan[0]], np.int64))
+    _, wg_c, fix_g = by_band[0].gather_plan
+    shape = (len(band_shifts), n)
+
+    def gather_rows(spectra: torch.Tensor) -> torch.Tensor:
+        dev = spectra.device
+        return extract_gather_rows(spectra.contiguous(), at_c.on(dev),
+                                   wg_c.on(dev), fix_g)
+
+    def gather_route(spectra: torch.Tensor) -> bool:
+        """One K-GATHER launch over every band: a complex64 CUDA batch,
+        and no band's plan one that its own extractor sends to
+        K-EXTRACT."""
+        return (routes.extract_ifft in ("auto", "fused") and spectra.is_cuda
+                and spectra.dtype == torch.complex64 and gather_ok(n, m)
+                and not any(ex.kernel_ok(spectra[b])
+                            for b, ex in enumerate(by_band)))
+
+    def extract(spectra: torch.Tensor) -> torch.Tensor:
+        if tuple(spectra.shape) != shape:
+            raise ValueError(f"a batch of {shape[0]} bands of {n} bins is "
+                             f"{shape}, got {tuple(spectra.shape)}")
+        if gather_route(spectra):
+            return _fft.ifft_unscaled(gather_rows(spectra), routes)
+        return torch.cat([ex(spectra[b]) for b, ex in enumerate(by_band)])
+
+    extract.gather = gather_rows
+    extract.gather_route = gather_route
+    extract.by_band = by_band
     return extract

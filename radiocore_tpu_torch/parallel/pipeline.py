@@ -24,6 +24,14 @@ rows grouped by kind, and runs each kind's batched step over its group:
              ──MFM step──► (C_m, audio_chunk)
              ──FM step──► (C_f, audio_chunk)
 
+A batch of bands of one rate (``bands``: several SDRs side by side, each
+band with its own station plan) runs every stage once over the batch:
+
+    bands (B, n_band) ──one FFT over the batch──► spectra
+             ──K-GATHER (each row its band and start)──► (R, m) station IQ
+             ──the one-band step's demod and tail over all R rows──► audio
+                 (R, audio_chunk, 2), band after band
+
 On a CUDA device every kernel stage runs the hand-written kernel; on
 the CPU the same code runs their plain PyTorch versions. ``routes``
 (:class:`~radiocore_tpu_torch.runtime.routes.Routes`) can send the band
@@ -57,7 +65,8 @@ from radiocore_tpu_torch.models.fm import make_fm_step
 from radiocore_tpu_torch.models.mfm import make_mfm_step, mfm_init_state
 from radiocore_tpu_torch.models.wbfm import make_wbfm_step, wbfm_init_state
 from radiocore_tpu_torch.ops import fft as _fft
-from radiocore_tpu_torch.ops.channelize import (make_extractor,
+from radiocore_tpu_torch.ops.channelize import (make_band_extractor,
+                                                make_extractor,
                                                 uniform_extraction_start)
 from radiocore_tpu_torch.ops.demod import quadrature_demod
 from radiocore_tpu_torch.parallel.channelize_sharded import make_extract_body
@@ -76,11 +85,18 @@ KINDS = ("wbfm", "mfm", "fm")   # a mixed step's groups, in row order
 # group's rows a call; a compiled step adds a capture's count at every
 # replay, as it adds a kernel's launches (``runtime/graphs``).
 demodulated = {kind: LaunchCounter() for kind in KINDS}
+# Bands stepped: a step advances it by its bands a call (1 for one band),
+# and a compiled step adds the capture's count at every replay.
+bands = LaunchCounter()
+
+
+def _stepped(n_bands: int) -> None:
+    bands.count += n_bands
 
 
 def make_multi_station_step(
         n_band: int,
-        offsets_hz: Sequence[int],
+        offsets_hz: Optional[Sequence[int]],
         station_chunk: int,
         audio_chunk: int,
         deemphasis: float = 75e-6,
@@ -89,6 +105,7 @@ def make_multi_station_step(
         *,
         pll: str = "analytic",
         kinds: Optional[Sequence[str]] = None,
+        bands: Optional[Sequence[Sequence[int]]] = None,
         device: Optional[torch.device | str] = None,
         mesh: Optional[RadioMesh] = None,
         routes: Optional[Routes] = None,
@@ -147,6 +164,25 @@ def make_multi_station_step(
     kernels make a WBFM quad for every row) or with a mesh; so does a
     ``kinds`` of the wrong length or with an unknown kind.
 
+    ``bands`` serves a batch of B bands of one rate (``n_band`` each):
+    pass ``offsets_hz=None`` and band b's station offsets from its own
+    centre as ``bands[b]``, each band its own plan and station count. The
+    step then takes ``(B, n_band)`` complex64, runs one band FFT over the
+    batch, one extraction over every band's stations
+    (:func:`~radiocore_tpu_torch.ops.channelize.make_band_extractor`: one
+    K-GATHER launch on the card, each row reading its own band, where no
+    band's plan is one that K-EXTRACT takes) and the
+    demod and tail over all R stations, and returns audio ``(R,
+    audio_chunk, 2)`` and a state of R rows, band after band and in each
+    band in the order of its offsets; ``step.band_rows[b]`` is band b's
+    range of rows. Each row is what the one-band step of its band gives.
+    ``pll`` works per row as in one band. ``bands`` with ``offsets_hz``,
+    with ``kinds``, with ``extract_demod`` other than ``"off"`` or with a
+    mesh raises ``ValueError``; so does an empty band, a station whose
+    channel leaves its band, and a call with a batch of another shape.
+    ``bands`` (the module's counter) advances by B a call, and by 1 a
+    call of a one-band step.
+
     ``step.stages`` holds the three stages that ``step`` chains, for
     per-stage timing: ``band_fft``, ``extract`` and ``demod_tail`` for
     ``"off"``; ``band_fft``, ``extract_demod`` and ``tail`` otherwise.
@@ -195,6 +231,22 @@ def make_multi_station_step(
     if pll == "nco" and mesh is not None:
         raise ValueError("pll='nco' with a mesh: the mesh step carries no "
                          "loop state")
+    if bands is not None:
+        if offsets_hz is not None:
+            raise ValueError("offsets_hz and bands: give one band's "
+                             "offsets_hz, or bands with offsets_hz=None")
+        for what, given in (("kinds", kinds is not None),
+                            (f"extract_demod={extract_demod!r}",
+                             extract_demod != "off"),
+                            ("a mesh", mesh is not None)):
+            if given:
+                raise ValueError(f"bands with {what}: a batch of bands "
+                                 f"decodes WBFM on one device, through "
+                                 f"extract_demod='off'")
+        return _bands_step(n_band, bands, station_chunk, audio_chunk,
+                           deemphasis, mode, pll, device, routes)
+    if offsets_hz is None:
+        raise ValueError("no stations: give offsets_hz, or bands")
     rows = _kind_rows(kinds, len(offsets_hz))
     if rows is not None:
         if extract_demod != "off":
@@ -238,16 +290,9 @@ def make_multi_station_step(
         return _fft.fft(band_iq, routes)
 
     def station_rfft(quad: torch.Tensor) -> torch.Tensor:
-        if station_rfft_route(sc, quad.is_cuda, routes) == "rows":
-            return fft_rows.rfft_pow2(quad.contiguous())
-        return _fft.rfft(quad, routes)
+        return _station_rfft(quad, sc, routes)
 
-    if mode == "exact":
-        demod_tail = tail   # batch-generic: the stations ride along
-    else:
-        def demod_tail(st_iq: torch.Tensor, state: State
-                       ) -> Tuple[torch.Tensor, State]:
-            return tail(station_rfft(quadrature_demod(st_iq)), state)
+    demod_tail = _demod_tail(tail, mode, sc, routes)
 
     if mesh is not None:
         return _mesh_step(mesh, n_band, shifts, sc, audio_chunk, deemphasis,
@@ -294,6 +339,7 @@ def make_multi_station_step(
 
     def step(band_iq: torch.Tensor, state: State
              ) -> Tuple[torch.Tensor, State]:
+        _stepped(1)
         with span(n1):
             x = first(band_iq)
         with span(n2):
@@ -309,6 +355,95 @@ def make_multi_station_step(
     compiled = compile_step(step, device)
     if rows is not None:
         compiled.rows = rows
+    return compiled, state0
+
+
+def _station_rfft(quad: torch.Tensor, sc: int, routes: Routes
+                  ) -> torch.Tensor:
+    """The ``fast`` step's station rfft (:func:`station_rfft_route`)."""
+    if station_rfft_route(sc, quad.is_cuda, routes) == "rows":
+        return fft_rows.rfft_pow2(quad.contiguous())
+    return _fft.rfft(quad, routes)
+
+
+def _demod_tail(tail: Callable[[torch.Tensor, State],
+                               Tuple[torch.Tensor, State]],
+                mode: str, sc: int, routes: Routes):
+    """The ``demod_tail`` stage over station IQ: the exact WBFM step takes
+    the IQ itself (batch-generic: the stations ride along); the fast one
+    takes the composite spectra of the IQ's quadrature demod."""
+    if mode == "exact":
+        return tail
+
+    def demod_tail(st_iq: torch.Tensor, state: State
+                   ) -> Tuple[torch.Tensor, State]:
+        return tail(_station_rfft(quadrature_demod(st_iq), sc, routes),
+                    state)
+
+    return demod_tail
+
+
+def _bands_step(n_band: int, bands_hz: Sequence[Sequence[int]],
+                station_chunk: int, audio_chunk: int, deemphasis: float,
+                mode: str, pll: str, device: Optional[torch.device | str],
+                routes: Optional[Routes]):
+    """:func:`make_multi_station_step` over a batch of bands, each with
+    its own offsets (``bands``)."""
+    n_band, sc = int(n_band), int(station_chunk)
+    plans = [tuple(int(o) for o in offs) for offs in bands_hz]
+    if not plans or not all(plans):
+        raise ValueError(f"bands: every band needs a station, got "
+                         f"{[len(p) for p in plans]} stations")
+    for b, plan in enumerate(plans):
+        for o in plan:
+            if abs(o) + sc // 2 > n_band // 2:
+                raise ValueError(
+                    f"band {b}: the station at {o} Hz leaves its band (a "
+                    f"{sc}-S/s channel in a {n_band}-S/s band reaches "
+                    f"{n_band // 2 - sc // 2} Hz from the centre)")
+    device = resolve_device(device)
+    routes = resolve(routes)
+    tail = make_wbfm_step(
+        sc, audio_chunk, deemphasis,
+        mode="exact" if mode == "exact" else "fast_spec", pll=pll,
+        routes=routes)
+    extract = make_band_extractor(
+        n_band, [[-o for o in plan] for plan in plans], sc, routes)
+    shape = (len(plans), n_band)
+
+    def band_fft(band_iq: torch.Tensor) -> torch.Tensor:
+        if tuple(band_iq.shape) != shape:
+            raise ValueError(f"the step takes {len(plans)} bands of "
+                             f"{n_band} samples, {shape}, got "
+                             f"{tuple(band_iq.shape)}")
+        return _fft.fft(band_iq, routes)
+
+    def extract_stations(spectra: torch.Tensor) -> torch.Tensor:
+        return extract(spectra).to(torch.complex64)
+
+    demod_tail = _demod_tail(tail, mode, sc, routes)
+
+    def step(band_iq: torch.Tensor, state: State
+             ) -> Tuple[torch.Tensor, State]:
+        _stepped(len(plans))
+        with span("band_fft"):
+            x = band_fft(band_iq)
+        with span("extract"):
+            x = extract_stations(x)
+        with span("demod_tail"):
+            return demod_tail(x, state)
+
+    step.stages = {"band_fft": band_fft, "extract": extract_stations,
+                   "demod_tail": demod_tail}
+    n_rows = sum(len(plan) for plan in plans)
+    state0 = wbfm_init_state(audio_chunk, deemphasis,
+                             batch_shape=(n_rows,), pll=pll, device=device)
+    compiled = compile_step(step, device)
+    a, band_rows = 0, []
+    for plan in plans:
+        band_rows.append(range(a, a + len(plan)))
+        a += len(plan)
+    compiled.band_rows = tuple(band_rows)
     return compiled, state0
 
 

@@ -185,3 +185,47 @@ def test_only_routes_and_apps_read_routing_variables():
     # The check sees the reads that are allowed.
     assert readers == {"apps/multi_fm_server.py":
                        ["RADIOCORE_TPU_EXTRACT_DEMOD"]}, readers
+
+
+def test_the_bands_step_and_its_benchmark_modules_without_jax(monkeypatch):
+    """The multi-band step on CPU tensors never reaches the kernel
+    library, and the benchmark's modules for it (its pools, reference,
+    loop, bounds and readers) import neither JAX nor the JAX package."""
+    import numpy as np
+    import torch
+    from radiocore_tpu_torch.kernels import build
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(build, "build", refuse)
+    monkeypatch.setattr(build, "library", refuse)
+    torch.set_num_threads(2)
+    rng = np.random.default_rng(0)
+    band = torch.from_numpy((rng.standard_normal((2, 1 << 18)) + 1j
+                             * rng.standard_normal((2, 1 << 18))).astype(
+                                 np.complex64))
+    for mode in ("fast", "exact"):
+        step, state = make_multi_station_step(
+            1 << 18, None, 1 << 16, 16_384, mode=mode,
+            bands=[[-65_536, 0, 65_536], [-32_768]], device="cpu")
+        audio, _ = step(band, state)
+        assert tuple(audio.shape) == (4, 16_384, 2)
+    code = ("import importlib, sys\n"
+            f"sys.path.insert(0, {str(REPO)!r})\n"
+            "for m in ('portbench.bands', 'portbench.roofline_bands',\n"
+            "          'portbench.references.multi_bands',\n"
+            "          'portbench.loops.resident_bands'):\n"
+            "    importlib.import_module(m)\n"
+            "from portbench import harness\n"
+            "for name in ('bands_fft_roofline', 'gather_roofline',\n"
+            "             'front_end_ms.bands'):\n"
+            "    harness.reader(name)\n"
+            "bad = sorted(k for k in sys.modules\n"
+            "             if k in ('jax', 'radiocore_tpu')\n"
+            "             or k.startswith(('jax.', 'jaxlib', 'radiocore_tpu.')))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
