@@ -33,7 +33,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    quadrature demod, at the wbfm24 cells' 24 x 240 000 and at a mix
    group's 8 rows of it, on FM station IQ, against its plain version (the
    torch chain): samples that differ, the largest gap, the device time of
-   both after an L2 flush and back to back, beside its bytes bound;
+   both after an L2 flush and back to back, beside its bytes bound; then
+   K-BANDFFT, the 10^7-point band transform, at 1 and 2 rows, and at the
+   other size it is routed, 3200², against cuFFT in complex128 (both
+   signs, beside cuFFT's own complex64 error), its two passes' and
+   cuFFT's device times after an L2 flush beside the bytes bound, and its
+   launches a replayed wbfm24 step;
 5. runs K-MIXED (the 24M = 96 · 2^18 band FFT, with its column pass and
    its row passes also timed apart), K-EXTRACT on that band, K-XDEMOD and
    K-XDEMOD-SPEC against their plain versions at the 96-station shapes,
@@ -323,6 +328,10 @@ KERNELS = {
     # Replaces jnp ops, not a TPU kernel.
     "K-QDEMOD": ("radiocore_tpu_torch/csrc/quad_demod.cu",
                  "radiocore_tpu/ops/demod.py:16"),
+    # Replaces the library's transform (XLA's FFT in the reference), not
+    # a TPU kernel.
+    "K-BANDFFT": ("radiocore_tpu_torch/csrc/fft_band.cu",
+                  "radiocore_tpu/ops/fft.py:306"),
 }
 
 
@@ -922,6 +931,91 @@ def check_quad_demod(device, gen) -> dict:
             stats.update(least)
     stats["library_ms"] = None
     return stats
+
+
+def check_band_fft(device, gen) -> tuple:
+    """K-BANDFFT at the 10 MS/s band, 1 x 10^7 and 2 x 10^7 points, and
+    at 1 x 3200², the other size routed to it: its rel_l2 against cuFFT in
+    complex128 beside cuFFT's own in complex64 (both signs; the kernels'
+    no worse than twice cuFFT's), the input left as it was, the device
+    time of its two kernels and of cuFFT after an L2 flush beside the
+    bytes bound, each pass alone, and its launches a replayed step of the
+    wbfm24 ``fast`` step (2). Returns its stats and those launches."""
+    import torch
+    from radiocore_tpu_torch.kernels import fft_band as fb
+    from radiocore_tpu_torch.parallel.pipeline import make_multi_station_step
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    flushing = {name for name, _ in kernel_times_ms(flush.zero_)}
+
+    def device_ms(fn):
+        times = kernel_times_ms(lambda: (flush.zero_(), fn()))
+        return [(name, ms) for name, ms in times if name not in flushing]
+
+    stats = {}
+    for rows, n, what in ((1, W24_BAND, ""), (2, W24_BAND, "_2rows"),
+                          (1, 3200 * 3200, "_3200x3200")):
+        a, b = fb.band_split(n)
+        x = crandn(gen, device, rows, n)
+        keep = x.clone()
+        for sign in (-1.0, 1.0):
+            x64 = x.to(torch.complex128)
+            want = (torch.fft.fft(x64) if sign < 0 else
+                    torch.fft.ifft(x64, norm="forward"))
+            del x64
+            err = rel_l2(fb.fft_band_rows(x, sign), want)
+            lib = rel_l2(fb.fft_band_plain(x, sign), want)
+            del want
+            print(f"[kernel] K-BANDFFT {rows}x{n} sign {sign:+.0f}: rel_l2 "
+                  f"{err:.3e}, cuFFT complex64 {lib:.3e}")
+            if not err <= 2 * lib:
+                raise AssertionError(f"K-BANDFFT: rel_l2 {err} above twice "
+                                     f"cuFFT's {lib}")
+            stats[f"rel_l2{what}_{sign:+.0f}"] = err
+            stats[f"library_rel_l2{what}_{sign:+.0f}"] = lib
+        if not torch.equal(x, keep):
+            raise AssertionError("K-BANDFFT wrote its input")
+        del keep
+        kernels = device_ms(lambda: fb.fft_band_rows(x))
+        names = [name for name, _ in kernels]
+        if (len(kernels) != 2 or "band_pass_kernel" not in names[0]
+                or "band_pass_kernel" not in names[1]):
+            raise AssertionError(f"K-BANDFFT: kernels {kernels}")
+        ms = sum(t for _, t in kernels)
+        library = sum(t for _, t in device_ms(lambda: torch.fft.fft(x)))
+        plain = time_ms(lambda: fb.fft_band_plain(x))
+        least = bound(16 * rows * n, fft_flops(n, rows))
+        report(f"K-BANDFFT {rows}x{n} ({a}x{b}, chains {fb.CHAINS[a]} and "
+               f"{fb.CHAINS[b]}) rel_l2", stats[f"rel_l2{what}_-1"],
+               2 * stats[f"library_rel_l2{what}_-1"], ms, plain, least,
+               library)
+        print(f"[kernel] K-BANDFFT {rows}x{n} device time after an L2 "
+              f"flush: column pass {kernels[0][1]:.4f} ms, row pass "
+              f"{kernels[1][1]:.4f} ms, both {ms:.4f} ms; cuFFT "
+              f"{library:.4f} ms; bytes bound {least['bound_ms']:.4f} ms")
+        stats.update({f"ms{what}": ms, f"library_ms{what}": library,
+                      f"column_ms{what}": kernels[0][1],
+                      f"row_ms{what}": kernels[1][1]})
+        if not what:
+            stats.update(plain_ms=plain, **least)
+        del x
+    del flush
+    torch.cuda.empty_cache()
+    step, state = make_multi_station_step(
+        W24_BAND, W24_OFFSETS, W24_STATION, W24_AUDIO, mode="fast", device=device)
+    band = crandn(gen, device, W24_BAND) * 0.01
+    for _ in range(2):
+        _, state = step(band, state)
+    torch.cuda.synchronize()
+    before = fb.launches.count
+    for _ in range(W24_STEPS):
+        _, state = step(band, state)
+    torch.cuda.synchronize()
+    per_step = (fb.launches.count - before) / W24_STEPS
+    print(f"[kernel] K-BANDFFT launches a replayed step of the wbfm24 fast "
+          f"step: {per_step}")
+    if per_step != 2:
+        raise AssertionError(f"K-BANDFFT: {per_step} launches a step")
+    return stats, int(per_step)
 
 
 # The mixed24 cell (portbench/configs/mixed24.json): the wbfm24 plan with
@@ -2504,15 +2598,15 @@ def tensors(tree) -> list:
 def kernel_counters() -> dict:
     """Every kernel's launch counter and K-FFT's by entry, by name."""
     from radiocore_tpu_torch.kernels import (extract, extract_demod as xd,
-                                             fft_mixed, fft_rows, fir,
-                                             nco_pll, quad_demod)
+                                             fft_band, fft_mixed, fft_rows,
+                                             fir, nco_pll, quad_demod)
     return {"K-FFT": fft_rows.launches,
             **{f"K-FFT {e}": c for e, c in fft_rows.entry_launches.items()},
             "K-MIXED": fft_mixed.launches, "K-EXTRACT": extract.launches,
             "K-GATHER": extract.gather_launches, "K-XDEMOD": xd.launches,
             "K-XDEMOD-SPEC": xd.spec_launches,
             "K-FIR": fir.launches, "K-NCO": nco_pll.launches,
-            "K-QDEMOD": quad_demod.launches}
+            "K-QDEMOD": quad_demod.launches, "K-BANDFFT": fft_band.launches}
 
 
 def times_ms(fn):
@@ -3626,6 +3720,11 @@ def main(argv=()) -> int:
         kstats["K-QDEMOD"] = check_quad_demod(device, gen)
         lap("K-QDEMOD at the wbfm24 shape")
 
+    def phase_bandfft():
+        kstats["K-BANDFFT"], launches["K-BANDFFT"] = check_band_fft(device,
+                                                                    gen)
+        lap("K-BANDFFT at the 10 MS/s band")
+
     def phase_mixed():
         # Phase 20: the mixed24 cell's step, WBFM, MFM and FM.
         check_mixed(device, gen)
@@ -3748,7 +3847,8 @@ def main(argv=()) -> int:
         check_synth(device)
         lap("[native] and [synth]")
 
-    for run_phase in (phase_main, phase_gather, phase_qdemod, phase_mixed,
+    for run_phase in (phase_main, phase_gather, phase_qdemod, phase_bandfft,
+                      phase_mixed,
                       phase_bands, phase_band, phase_dead, phase_paths96,
                       phase_nco, phase_firpilot, phase_exact, phase_ncopath,
                       phase_classes, phase_deadstep, phase_routes,

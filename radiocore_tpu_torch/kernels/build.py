@@ -137,6 +137,7 @@ _SIGNATURES = {
                    _F, _F, _F, _I, _P],
     "rc_nco_chain_probe": [_P, _P, _L, _I, _I, _I, _F, _F, _F, _F, _P],
     "rc_quad_demod": [_P, _L, _P, _L, _L, _F, _P],
+    "rc_fft_band": [_P, _P, _P, _L, _I, _I, _I, _P, _P, _P],
 }
 
 

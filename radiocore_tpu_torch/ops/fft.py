@@ -11,8 +11,13 @@ ones to ``fft_large_pow2``, real transforms to ``rfft_pow2`` and
 ``irfft_pow2`` when n/2 is a row. Sizes ``a·2^k`` (a ≤ 128, not a power
 of two) of at least ``routes.fft_mixed_min`` go to K-MIXED
 (``kernels/fft_mixed.py``), as ``_use_mixed`` sends them to
-``fft_large_mixed_pallas``. The kernels take complex64 (float32 for the
-rfft) only, so a complex128 tensor never reaches them.
+``fft_large_mixed_pallas``. Other sizes of at least
+``routes.fft_mixed_min`` that are not powers of two and whose
+``band_split`` exists (``a·b`` with both sides' chains built in: the
+10^7-point band, and 3200²) go to K-BANDFFT (``kernels/fft_band.py``),
+two passes over device memory; the JAX package leaves them to XLA. The kernels take
+complex64 (float32 for the rfft) only, so a complex128 tensor never
+reaches them.
 
 What no kernel takes goes to ``torch.fft``, which handles every size, so
 the JAX planner's native-FFT probe and its ``set_policy`` have no
@@ -27,7 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from radiocore_tpu_torch.kernels import fft_mixed, fft_rows
+from radiocore_tpu_torch.kernels import fft_band, fft_mixed, fft_rows
 from radiocore_tpu_torch.runtime.graphs import device_cache
 from radiocore_tpu_torch.runtime.routes import Routes, at_least, resolve
 
@@ -46,7 +51,8 @@ def route_name(n: int, dtype: torch.dtype, is_cuda: bool,
     count; the kernel takes exactly ``n//2 + 1``). Returns ``"rows"``
     (K-FFT: ``fft_pow2``, or ``fft_large_pow2`` above ``MAX_ROW``; for
     ``rfft``/``irfft`` ``rfft_pow2``/``irfft_pow2``), ``"mixed"``
-    (K-MIXED) or ``"torch"``.
+    (K-MIXED), ``"band"`` (K-BANDFFT: a complex transform that K-MIXED
+    does not take, of a size with a ``band_split``) or ``"torch"``.
     """
     r = resolve(routes)
     n = int(n)
@@ -59,9 +65,11 @@ def route_name(n: int, dtype: torch.dtype, is_cuda: bool,
             if (op != "fft" and half_row
                     and (op == "rfft" or bins == n // 2 + 1)):
                 return "rows"
-        if (op == "fft" and not pow2 and at_least(n, r.fft_mixed_min)
-                and fft_mixed.mixed_split(n) is not None):
-            return "mixed"
+        if op == "fft" and not pow2 and at_least(n, r.fft_mixed_min):
+            if fft_mixed.mixed_split(n) is not None:
+                return "mixed"
+            if fft_band.band_split(n) is not None:
+                return "band"
     return "torch"
 
 
@@ -80,6 +88,8 @@ def _fft_rec(x: torch.Tensor, sign: float, r: Routes) -> torch.Tensor:
         return fft_rows.fft_large_pow2(x.contiguous(), sign)
     if name == "mixed":
         return fft_mixed.fft_large_mixed(x.contiguous(), sign)
+    if name == "band":
+        return fft_band.fft_band(x.contiguous(), sign)
     if sign < 0:
         return torch.fft.fft(x, dim=-1)
     return torch.fft.ifft(x, dim=-1, norm="forward")

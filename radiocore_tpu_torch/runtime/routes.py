@@ -12,7 +12,10 @@ package's:
   disables): power-of-two complex64 transforms on the card of at least
   this size go to K-FFT (``ops/fft``);
 - ``fft_mixed_min`` (``RADIOCORE_TPU_FFT_MIXED_MIN``, 2^23; 0 disables):
-  sizes ``a·2^k`` on the card of at least this size go to K-MIXED;
+  sizes ``a·2^k`` on the card of at least this size go to K-MIXED, and
+  other sizes of at least it with a ``band_split`` (10^7 and 3200², no
+  size of a station-rate transform) to K-BANDFFT; 0 sends both back to
+  cuFFT;
 - ``extract_ifft`` (``RADIOCORE_TPU_EXTRACT_IFFT``): the extraction's
   inverse transform (``ops/channelize``);
 - ``station_rfft`` (``RADIOCORE_TPU_STATION_RFFT``): the station rfft
